@@ -6,18 +6,22 @@ Run it from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``lattigo_tpu_torch/csrc``, holds each kernel
-bit for bit against its plain PyTorch version at the shapes the main path
-gives it (and at a grid of other shapes), times them, then drives the BFV
+bit for bit against its plain PyTorch version at the shapes the main paths
+give it (and at a grid of other shapes), times them, then drives the BFV
 main path (keygen, encode, encrypt, multiply + relinearize, decrypt, decode)
 at PN12QP109 and, at full width, at PN14QP438 with 16 stacked ciphertext
-pairs.  Every phase prints one JSON line; any failure exits non-zero.  The
-last line is ``{"ok": true, "device": {...}}``.
+pairs; the CKKS path (keygen with a sparse secret, encode, encrypt,
+multiply + relinearize + rescale, rotate by one slot, conjugate, decrypt,
+decode) at PN16QP1761 with 8 stacked ciphertext pairs; and one BFV multiply
+at PN15QP880, whose single-poly transforms at N = 32768 only the two-pass
+kernel holds.  Every phase prints one JSON line; any failure exits
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, main_path,
-full_width, and ``profile``, which is not in the default run: one traced
-``forward`` per configuration, device time by kernel name and the device's
-idle share); ``--batch`` sets the full-width batch; ``--verbose-build``
-prints ptxas' resource report.
+full_width, ckks, bfv15, and ``profile``, which is not in the default run:
+one traced ``forward`` per configuration, device time by kernel name and the
+device's idle share); ``--batch`` sets the PN14QP438 batch;
+``--verbose-build`` prints ptxas' resource report.
 """
 
 from __future__ import annotations
@@ -38,16 +42,26 @@ if not torch.cuda.is_available():
 import numpy as np
 
 from lattigo_tpu_torch import _build
-from lattigo_tpu_torch.entry import entry
-from lattigo_tpu_torch.models import bfv
-from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, tile_ntt
+from lattigo_tpu_torch.entry import entry, entry_ckks
+from lattigo_tpu_torch.models import bfv, ckks
+from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.ops.ring import Ring
+from lattigo_tpu_torch.utils.precision import precision_stats
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense
+# 32-bit integer multiplies: 64 per SM per clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), half of the 128
+# float32 lanes behind the data sheet's 67 TFLOP/s float32 (132 SMs x 1.98 GHz)
+INT32_MULS_PER_S = 67e12 / 4
+# int32 multiplies of one 64-bit Shoup butterfly: 3 for v*w mod 2^64, 4 for
+# the high word of v*w', 3 for that word times q
+MULS_PER_BUTTERFLY = 10
+MIN_PREC = 12.0  # median bits of a CKKS decoding (tests/test_ckks.py)
+CKKS_BATCH = 8  # ciphertext pairs stacked at PN16QP1761
 REPS = 20
 
 KERNELS = {
@@ -61,7 +75,13 @@ KERNELS = {
         source="lattigo_tpu_torch/csrc/ntt_fourstep.cu",
         replaces="lattigo_tpu/ops/mxu_ntt.py:465",
     ),
+    "ntt_passes": dict(
+        wrapper=pallas_ntt.ntt_passes, route="cuda",
+        source="lattigo_tpu_torch/csrc/ntt_passes.cu",
+        replaces="lattigo_tpu/ops/pallas_ntt.py:262",
+    ),
 }
+ROUTE_KERNEL = {"tile": "ntt_tile", "mxu": "ntt_mxu", "passes": "ntt_passes"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -98,6 +118,18 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host time of ``fn`` ending in a device synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
@@ -116,7 +148,18 @@ def read_counts() -> dict:
 def plain_of(name: str, ring, x, limbs, inverse):
     if name == "ntt_tile":
         return ring._intt_simple(x, limbs) if inverse else ring._ntt_simple(x, limbs)
+    if name == "ntt_passes":
+        return pallas_ntt.ntt_passes_plain(ring, x, limbs, inverse)
     return mxu_ntt.ntt_mxu_plain(ring, x, limbs, inverse)
+
+
+def takes(name: str, n: int) -> bool:
+    """Whether kernel ``name`` holds rows of N = n."""
+    if name == "ntt_tile":
+        return tile_ntt.MIN_N <= n <= tile_ntt.MAX_N
+    if name == "ntt_mxu":
+        return mxu_ntt.supported(n)
+    return pallas_ntt.MIN_N <= n <= pallas_ntt.MAX_N
 
 
 def rand_input(ring, batch, limbs, lazy_mult: int, seed: int) -> torch.Tensor:
@@ -144,19 +187,30 @@ def bound_ms(name: str, ring, batch_rows: int, limbs) -> tuple[float, str]:
     """The least time the GPU could take: each input (data and the tables of
     the limbs used) read once, each output written once, over the memory
     rate; for the four-step kernel also its int8 operations over the int8
-    tensor-core peak."""
+    tensor-core peak; for the two-pass kernel also its (N/2) log N Shoup
+    butterflies per row, MULS_PER_BUTTERFLY int32 multiplies each, over the
+    int32 multiply rate."""
     n, L = ring.n, len(limbs)
     nl = len(set(limbs))
     data = 2 * batch_rows * L * n * 8
     if name == "ntt_tile":
         tables = nl * (2 * n * 8 + 4 * 8)
         return (data + tables) / HBM_BYTES_PER_S * 1e3, "bytes"
+    if name == "ntt_passes":
+        t_bytes = (data + nl * 2 * n * 8) / HBM_BYTES_PER_S * 1e3
+        muls = batch_rows * L * (n // 2) * ring.log_n * MULS_PER_BUTTERFLY
+        t_ops = muls / INT32_MULS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     n1 = n // 128
     tables = nl * ((8 * n1) ** 2 + 1024 ** 2 + 4 * (8 * n1 + 1024) + 3 * n * 8 + 8 * 8)
     t_bytes = (data + tables) / HBM_BYTES_PER_S * 1e3
     ops = batch_rows * L * (2 * (8 * n1) ** 2 * 128 + 2 * n1 * 1024 ** 2)
     t_ops = ops / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def median_bits(got, want) -> float:
+    return precision_stats(got, want).median_bits
 
 
 # ---------------------------------------------------------------------------
@@ -212,35 +266,56 @@ def measure_shape(name, ring, shape, limbs, inverse, seed) -> dict:
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
-def cross_time(name, ring, shape, limbs, inverse, seed) -> float | None:
-    """The OTHER kernel's time on a shape the routing gives to ``name``."""
-    other = "ntt_mxu" if name == "ntt_tile" else "ntt_tile"
-    if other == "ntt_mxu" and not mxu_ntt.supported(ring.n):
-        return None
-    if other == "ntt_tile" and ring.n > tile_ntt.MAX_N:
-        return None
+def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
+    """The OTHER kernels' times on a shape the routing gives to ``name``,
+    for each that holds rows of this N."""
     x = rand_input(ring, shape[:-2], limbs, 1, seed)
-    w = KERNELS[other]["wrapper"]
     want = plain_of(name, ring, x, limbs, inverse)
-    if not torch.equal(w(ring, x, limbs, inverse=inverse), want):
-        fail(f"{other} disagrees with the plain version on {shape} limbs {limbs}")
-    return time_ms(lambda: w(ring, x, limbs, inverse=inverse))
+    out = {}
+    for other, k in KERNELS.items():
+        if other == name or not takes(other, ring.n):
+            continue
+        w = k["wrapper"]
+        if not torch.equal(w(ring, x, limbs, inverse=inverse), want):
+            fail(f"{other} disagrees with the plain version on {shape} limbs {limbs}")
+        out[other] = time_ms(lambda: w(ring, x, limbs, inverse=inverse))
+    return out
+
+
+def measure_calls(calls, label: str) -> list[dict]:
+    """Every distinct NTT call of a forward: its kernel against the plain
+    version, timed, with the other kernels' times on the same shape."""
+    shapes = []
+    seen = set()
+    for i, (ring, shape, limbs, inverse, route) in enumerate(calls):
+        key = (id(ring), shape, limbs, inverse, route)
+        if key in seen:
+            continue
+        seen.add(key)
+        name = ROUTE_KERNEL[route]
+        r = measure_shape(name, ring, shape, limbs, inverse, seed=1000 + i)
+        r.update(kernel=name, calls=sum(1 for c in calls if (id(c[0]), *c[1:]) == key),
+                 other_kernel_ms=cross_time(name, ring, shape, limbs, inverse, seed=2000 + i))
+        if r["max_abs_err"] != 0:
+            fail(f"{label}: {name} disagrees with its plain version at {shape} limbs {limbs}")
+        shapes.append(r)
+        torch.cuda.empty_cache()
+    return shapes
 
 
 def phase_kernels() -> None:
     """Bit-equality (tolerance 0: integers) of each kernel with its plain
     version over a grid of sizes, primes, lazy inputs, limb subsets and
-    batches."""
+    batches; and the two-pass kernel's time beside the other kernels' on
+    the same shapes."""
     results = []
     seed = 100
     for log_n in (10, 11, 12, 13, 14, 15):
         n = 1 << log_n
         for bits in (60, 39):
             ring = Ring(n, nt.generate_ntt_primes(bits, log_n, 3), device=DEV)
-            for name in KERNELS:
-                if name == "ntt_tile" and n > tile_ntt.MAX_N:
-                    continue
-                if name == "ntt_mxu" and not mxu_ntt.supported(n):
+            for name in ("ntt_tile", "ntt_mxu"):
+                if not takes(name, n):
                     continue
                 # batch 17 is no multiple of any block of polys
                 for batch in ((1,) if name == "ntt_mxu" else (), (3,), (17,)):
@@ -251,6 +326,32 @@ def phase_kernels() -> None:
                             err = check_equal(name, ring, x, limbs, inverse)
                             results.append(dict(kernel=name, n=n, bits=bits, batch=list(batch),
                                                 limbs=list(limbs), inverse=inverse, err=err))
+    # the two-pass kernel from N = 2^12 to 2^16, and its smallest and largest
+    # N (every split k = 1..4), every prime size of the default sets, prefix
+    # and non-prefix limbs
+    passes_times = []
+    for log_n in (10, 12, 13, 14, 15, 16, 17):
+        n = 1 << log_n
+        for bits in (60, 55, 45, 39):
+            ring = Ring(n, nt.generate_ntt_primes(bits, log_n, 3), device=DEV)
+            for batch in ((1,), (3,), (72,)):
+                for limbs in ((0, 1, 2), (2, 0)):
+                    for inverse in (False, True):
+                        seed += 1
+                        x = rand_input(ring, batch, limbs, 4, seed)
+                        err = check_equal("ntt_passes", ring, x, limbs, inverse)
+                        results.append(dict(kernel="ntt_passes", n=n, bits=bits,
+                                            batch=list(batch), limbs=list(limbs),
+                                            inverse=inverse, err=err))
+            if bits == 60 and 12 <= log_n <= 16:
+                for inverse in (False, True):
+                    shape = (72, 3, n)
+                    r = measure_shape("ntt_passes", ring, shape, (0, 1, 2), inverse, seed)
+                    r["other_kernel_ms"] = cross_time("ntt_passes", ring, shape, (0, 1, 2),
+                                                      inverse, seed)
+                    passes_times.append(r)
+            del ring
+            torch.cuda.empty_cache()
     # the plaintext ring: t = 65537, one limb, batch 1 (encode / decode)
     for log_n in (12, 14):
         ring = Ring(1 << log_n, [65537], device=DEV)
@@ -268,16 +369,20 @@ def phase_kernels() -> None:
     except NotImplementedError:
         pass
     bad = [r for r in results if r["err"] != 0]
-    emit("kernels", cases=len(results), ok=not bad, failed=bad[:10])
+    if any(r["max_abs_err"] != 0 for r in passes_times):
+        bad.append("ntt_passes timing shapes")
+    emit("kernels", cases=len(results), ok=not bad, failed=bad[:10],
+         cases_by_kernel={k: sum(r["kernel"] == k for r in results) for k in KERNELS},
+         passes_times=passes_times)
     if bad:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
 
 
 def drive(params_idx: int, batch: tuple, label: str) -> dict:
-    """One main-path run: keygen, encode, encrypt, forward, decrypt, decode,
-    with the launch counts of ``forward`` and of the whole pipeline, the
-    kernels held against their plain versions at every shape ``forward``
-    gives them, and ``forward`` held against the all-plain route."""
+    """One BFV run: keygen, encode, encrypt, forward, decrypt, decode, with
+    the launch counts of ``forward`` and of the whole pipeline, the kernels
+    held against their plain versions at every shape ``forward`` gives
+    them, and ``forward`` held against the all-plain route."""
     params = bfv.default_params(params_idx)
     reset_counts()
     t0 = time.time()
@@ -311,53 +416,101 @@ def drive(params_idx: int, batch: tuple, label: str) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(out.value, ref.value)):
         fail(f"{label}: forward differs from the all-plain route")
 
-    def run():
-        forward(ct0, ct1, swk)
-
-    fwd_times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        fwd_times.append((time.perf_counter() - t0) * 1e3)
-
-    # every distinct call of forward: kernel vs plain, timed
-    shapes = []
-    seen = set()
-    for i, (ring, shape, limbs, inverse, route) in enumerate(calls):
-        key = (id(ring), shape, limbs, inverse, route)
-        if key in seen:
-            continue
-        seen.add(key)
-        name = "ntt_mxu" if route == "mxu" else "ntt_tile"
-        r = measure_shape(name, ring, shape, limbs, inverse, seed=1000 + i)
-        r.update(kernel=name, calls=sum(1 for c in calls if (id(c[0]), *c[1:]) == key),
-                 other_kernel_ms=cross_time(name, ring, shape, limbs, inverse, seed=2000 + i))
-        if r["max_abs_err"] != 0:
-            fail(f"{label}: {name} disagrees with its plain version at {shape} limbs {limbs}")
-        shapes.append(r)
-
+    forward_ms = host_ms(lambda: forward(ct0, ct1, swk))
     return dict(label=label, n=params.n, batch=list(batch), counts=counts,
                 setup_and_first_forward_counts=pipeline_before, setup_s=setup_s,
-                first_forward_s=first_forward_s,
-                forward_ms=statistics.median(fwd_times), shapes=shapes)
+                first_forward_s=first_forward_s, forward_ms=forward_ms,
+                shapes=measure_calls(calls, label))
 
 
-def phase_profile(params_idx: int, batch: tuple, label: str) -> None:
+def phase_ckks() -> dict:
+    """The CKKS path at PN16QP1761 with CKKS_BATCH stacked pairs: keygen,
+    encode, encrypt, forward = rescale(mul_relin), rotate by one slot,
+    conjugate, decrypt and decode ct 0 and ct batch-1 after each, the
+    forward held against the all-plain route, its launch counts, times and
+    peak device memory, and every passes launch of it timed."""
+    label = "PN16QP1761"
+    batch = CKKS_BATCH
+    params = ckks.default_params(ckks.PN16QP1761)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    forward, (ct0, ct1, rlk) = entry_ckks(device=DEV, batch=(batch,))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    setup_counts = read_counts()
+
+    t0 = time.time()
+    calls = record_calls(lambda: forward(ct0, ct1, rlk))
+    first_forward_s = time.time() - t0
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    out = forward(ct0, ct1, rlk)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    want_counts = {k: 0 for k in counts}
+    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4)
+    if counts != want_counts:
+        fail(f"{label}: launch counts of one forward are {counts}, expected 4 + 4 ntt_passes")
+
+    ev, rot_keys = forward.evaluator, forward.rotation_keys
+    rot = ev.rotate_columns(out, 1, rot_keys)
+    conj = ev.conjugate(rot, rot_keys)
+    enc = ckks.Encoder(params, device=DEV)
+    dec = ckks.Decryptor(params, forward.secret_key, device=DEV)
+    v0, v1 = forward.values
+    want = v0 * v1
+    precision = {}
+    for name, ct, w in (("forward", out, want), ("rotate", rot, np.roll(want, -1)),
+                        ("conjugate", conj, np.conj(np.roll(want, -1)))):
+        for i in (0, batch - 1):
+            one = ckks.Ciphertext([p[i] for p in ct.value], ct.scale)
+            got = enc.decode(dec.decrypt(one))
+            if got.shape != (params.slots,) or not np.isfinite(got).all():
+                fail(f"{label}: {name} ct {i} decodes to {got.shape} with non-finite values")
+            bits = median_bits(got, w)
+            precision[f"{name}_ct{i}"] = bits
+            if bits < MIN_PREC:
+                fail(f"{label}: {name} ct {i} has median precision {bits:.2f} < {MIN_PREC} bits")
+    if out.level != params.max_level - 1:
+        fail(f"{label}: forward left level {out.level}, expected {params.max_level - 1}")
+    del rot, conj
+
+    ring_mod.FORCE_KERNEL = "plain"
+    try:
+        ref = forward(ct0, ct1, rlk)
+    finally:
+        ring_mod.FORCE_KERNEL = None
+    if ref.scale != out.scale or not all(torch.equal(a, b) for a, b in zip(out.value, ref.value)):
+        fail(f"{label}: forward differs from the all-plain route")
+    del ref
+    torch.cuda.empty_cache()
+
+    forward_ms = host_ms(lambda: forward(ct0, ct1, rlk))
+    return dict(label=label, n=params.n, batch=[batch], counts=counts,
+                setup_counts=setup_counts, setup_s=setup_s, first_forward_s=first_forward_s,
+                forward_ms=forward_ms, peak_forward_bytes=peak_bytes,
+                resident_bytes_before_forward=base_bytes, precision_bits=precision,
+                shapes=measure_calls(calls, label))
+
+
+def phase_profile(make, label: str) -> None:
     """One ``forward`` under torch.profiler: wall time, the device's busy
     time (sum of kernel self times), its idle share, and the kernels that
     take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    forward, (ct0, ct1, swk) = entry(device=DEV, params_idx=params_idx, batch=batch)
+    forward, args = make()
     for _ in range(2):
-        forward(ct0, ct1, swk)
+        forward(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward(ct0, ct1, swk)
+        forward(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -365,17 +518,19 @@ def phase_profile(params_idx: int, batch: tuple, label: str) -> None:
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", label=label, batch=list(batch), traced_forward_ms=wall_ms,
+    emit("profile", label=label, traced_forward_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
          kernel_launches=sum(e.count for e in kernels),
          top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3, count=e.count) for e in top])
 
 
-def kernels_line(res: dict) -> dict:
-    """The per-kernel summary of a main-path run: for each kernel and
-    direction the largest shape the run gave it."""
+def kernel_rows(res: dict, names) -> list[dict]:
+    """The summary rows of kernels ``names`` from one path's run: for each
+    kernel and direction the largest shape the run gave it, with the
+    launches of that path's forward."""
     out = []
-    for name, k in KERNELS.items():
+    for name in names:
+        k = KERNELS[name]
         for inverse, tag in ((False, "_fwd"), (True, "_inv")):
             mine = [s for s in res["shapes"] if s["kernel"] == name and s["inverse"] == inverse]
             if not mine:
@@ -385,15 +540,15 @@ def kernels_line(res: dict) -> dict:
                 name=name + tag, route=k["route"], source=k["source"], replaces=k["replaces"],
                 launches=res["counts"][name + tag], max_abs_err=max(m["max_abs_err"] for m in mine),
                 ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-                library_ms=None, shape=s["shape"], limbs=s["limbs"],
+                library_ms=None, path=res["label"], shape=s["shape"], limbs=s["limbs"],
                 other_kernel_ms=s["other_kernel_ms"],
             ))
-    return {"kernels": out}
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,main_path,full_width")
+    ap.add_argument("--phases", default="device,build,kernels,main_path,full_width,ckks,bfv15")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     args = ap.parse_args()
@@ -405,28 +560,48 @@ def main() -> None:
         phase_build(args.verbose_build)
     if "kernels" in phases:
         phase_kernels()
-    summary = None
+    summary = []
     if "main_path" in phases:
         res = drive(bfv.PN12QP109, (), "PN12QP109")
         emit("main_path", **res)
-        if res["counts"] != {"ntt_tile_fwd": 1, "ntt_tile_inv": 2, "ntt_mxu_fwd": 6, "ntt_mxu_inv": 2}:
+        if res["counts"] != {"ntt_tile_fwd": 1, "ntt_tile_inv": 2, "ntt_mxu_fwd": 6,
+                             "ntt_mxu_inv": 2, "ntt_passes_fwd": 0, "ntt_passes_inv": 0}:
             fail(f"launch counts of one forward are {res['counts']}, expected 8 four-step and 3 row")
-        summary = kernels_line(res)
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
     if "full_width" in phases:
         res = drive(bfv.PN14QP438, (args.batch,), "PN14QP438")
         emit("full_width", **res)
         if sum(res["counts"].values()) == 0:
             fail("the full-width forward launched no kernel")
-        if summary is None:
-            summary = kernels_line(res)
+        if "main_path" not in phases:
+            summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+    if "ckks" in phases:
+        res = phase_ckks()
+        emit("ckks", **res)
+        summary += kernel_rows(res, ("ntt_passes",))
+        torch.cuda.empty_cache()
+    if "bfv15" in phases:
+        res = drive(bfv.PN15QP880, (), "PN15QP880")
+        emit("bfv15", **res)
+        passes = res["counts"]["ntt_passes_fwd"] + res["counts"]["ntt_passes_inv"]
+        setup = res["setup_and_first_forward_counts"]
+        if passes + setup["ntt_passes_fwd"] + setup["ntt_passes_inv"] == 0:
+            fail("PN15QP880: the two-pass kernel was never launched")
     if "profile" in phases:
-        phase_profile(bfv.PN12QP109, (), "PN12QP109")
-        phase_profile(bfv.PN14QP438, (args.batch,), "PN14QP438")
-    if summary is not None:
-        for k in summary["kernels"]:
+        phase_profile(lambda: entry(device=DEV), "PN12QP109")
+        phase_profile(lambda: entry(device=DEV, params_idx=bfv.PN14QP438, batch=(args.batch,)),
+                      f"PN14QP438 x {args.batch}")
+        phase_profile(lambda: entry_ckks(device=DEV, batch=(CKKS_BATCH,)),
+                      f"PN16QP1761 x {CKKS_BATCH}")
+    if summary:
+        for k in summary:
             if k["launches"] < 1:
                 fail(f"the main path never launched {k['name']}")
-        print(json.dumps(summary), flush=True)
+        if {"main_path", "ckks"} <= set(phases):
+            named = {k["name"].rsplit("_", 1)[0] for k in summary}
+            if named != set(KERNELS):
+                fail(f"the kernels line names {sorted(named)}, not every kernel")
+        print(json.dumps({"kernels": summary}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

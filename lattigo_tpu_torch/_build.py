@@ -17,7 +17,7 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD = os.path.join(_HERE, "build")
-SOURCES = ("ntt_row", "ntt_fourstep")
+SOURCES = ("ntt_row", "ntt_fourstep", "ntt_passes")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

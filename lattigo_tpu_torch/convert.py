@@ -1,13 +1,15 @@
 """Carrying state between numpy and the port: polynomials, ciphertexts and
 keys as ``uint64`` arrays on the host, int64 tensors on the device.  The JAX
 package's objects cross over as the ``uint64`` arrays its ``u64.to_u64``
-gives; nothing here imports it."""
+gives; nothing here imports it.  BFV and CKKS share the key classes; CKKS
+ciphertexts and plaintexts carry their scale (the level is the limb count)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from lattigo_tpu_torch.models import ckks
 from lattigo_tpu_torch.models.bfv.elements import Ciphertext
 from lattigo_tpu_torch.models.bfv.keygen import PublicKey, SecretKey, SwitchingKey
 from lattigo_tpu_torch.ops import u64 as u
@@ -54,3 +56,35 @@ def switching_key_from_numpy(key0: np.ndarray, key1: np.ndarray, device) -> Swit
 
 def switching_key_to_numpy(swk: SwitchingKey) -> tuple[np.ndarray, np.ndarray]:
     return poly_to_numpy(swk.key0), poly_to_numpy(swk.key1)
+
+
+def ckks_ciphertext_from_numpy(polys, scale: float, device) -> ckks.Ciphertext:
+    """One uint64 array [..., lvl+1, N] per degree, NTT domain."""
+    return ckks.Ciphertext([poly_from_numpy(p, device) for p in polys], float(scale))
+
+
+def ckks_ciphertext_to_numpy(ct: ckks.Ciphertext) -> tuple[list[np.ndarray], float]:
+    return [poly_to_numpy(p) for p in ct.value], ct.scale
+
+
+def ckks_plaintext_from_numpy(poly: np.ndarray, scale: float, device) -> ckks.Plaintext:
+    return ckks.Plaintext(poly_from_numpy(poly, device), float(scale))
+
+
+def ckks_plaintext_to_numpy(pt: ckks.Plaintext) -> tuple[np.ndarray, float]:
+    return poly_to_numpy(pt.value), pt.scale
+
+
+def rotation_keys_from_numpy(left: dict, right: dict, conjugate, device) -> ckks.RotationKeys:
+    """``left`` / ``right``: rotation -> (key0, key1) uint64 planes;
+    ``conjugate``: (key0, key1) or None."""
+    carry = lambda k: switching_key_from_numpy(*k, device)
+    return ckks.RotationKeys(
+        {r: carry(k) for r, k in left.items()}, {r: carry(k) for r, k in right.items()},
+        None if conjugate is None else carry(conjugate))
+
+
+def rotation_keys_to_numpy(rk: ckks.RotationKeys) -> tuple[dict, dict, tuple | None]:
+    return ({r: switching_key_to_numpy(k) for r, k in rk.left.items()},
+            {r: switching_key_to_numpy(k) for r, k in rk.right.items()},
+            None if rk.conjugate is None else switching_key_to_numpy(rk.conjugate))

@@ -147,6 +147,12 @@ class FastBasisExtender:
         pool = self.mod_up_pq(x_p, self.ring_q.level_of(x_q))
         return self._div(x_q, pool, self.mod_down_pq_, self.ring_q)
 
+    def mod_down_split_ntt_pq(self, x_q, x_p):
+        """Same, NTT domain in and out (ring/ring_basis_extension.go:207-245)."""
+        lvl = self.ring_q.level_of(x_q)
+        pool = self.ring_q.ntt(self.mod_up_pq(self.ring_p.intt(x_p), lvl))
+        return self._div(x_q, pool, self.mod_down_pq_, self.ring_q)
+
     def mod_down_split_qp(self, x_q, x_p):
         """(x - [x]_Q) / Q in basis P (ring/ring_basis_extension.go:314-348)."""
         return self._div(x_p, self.mod_up_qp(x_q), self.mod_down_qp_, self.ring_p)
@@ -176,6 +182,17 @@ class Decomposer:
             src = self.q_moduli[start : start + index + 2]
             self._params[key] = ModUpParams(src, self.q_moduli + self.p_moduli, self.device)
         return self._params[key]
+
+    def source_range(self, level: int, beta_idx: int) -> tuple[int, int]:
+        """(start, count) of the source limbs block ``beta_idx`` reads at
+        ``level``: the limbs whose values pass through unmodified."""
+        alpha_i = self.xalpha[beta_idx]
+        start = beta_idx * self.alpha
+        if (start + alpha_i > level + 1 and (level + 1) % self.n_p == 1) or alpha_i == 1:
+            return start, 1
+        if level >= alpha_i + start:
+            return start, alpha_i
+        return start, (level - 1) % self.alpha + 2
 
     def decompose_and_split(self, level: int, beta_idx: int, x):
         """x ([..., level+1, N] basis Q, coefficient domain) -> block

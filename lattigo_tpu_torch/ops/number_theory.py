@@ -189,6 +189,14 @@ def bit_reverse(x: int, nbits: int) -> int:
     return int(format(x, f"0{nbits}b")[::-1], 2) if nbits > 0 else 0
 
 
+def bit_reverse_array(v, nbits: int):
+    """:func:`bit_reverse` of every entry of a numpy integer array."""
+    out = v & 0
+    for b in range(nbits):
+        out |= ((v >> b) & 1) << (nbits - 1 - b)
+    return out
+
+
 def psi_tables(q: int, n: int) -> tuple[list[int], list[int], int, int, int]:
     """Bit-reversed tables of psi^j and psi^-j in Montgomery form, plus
     N^-1, psi, psi^-1 (Montgomery), matching ring/ring_context.go:160-209.

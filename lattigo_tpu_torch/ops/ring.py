@@ -11,7 +11,7 @@ Counterpart of ``lattigo_tpu/ops/ring.py`` (and of the reference's
   ring's ``device``.
 * ``_ntt_simple`` / ``_intt_simple`` run the reference's merged-psi schedule
   as log2(N) vectorised butterfly stages; they are the plain version and the
-  oracle of both CUDA kernels.  ``ntt_limbs`` / ``intt_limbs`` dispatch to
+  oracle of the CUDA kernels.  ``ntt_limbs`` / ``intt_limbs`` dispatch to
   the kernels (see :func:`Ring._route`).
 """
 
@@ -26,7 +26,7 @@ from lattigo_tpu_torch.ops import u64 as u
 
 # Override of the NTT routing, for timing one kernel on the other's shapes
 # and for running whole scheme ops on the plain schedule:
-# None (route by shape) | "tile" | "mxu" | "plain".
+# None (route by shape) | "tile" | "mxu" | "passes" | "plain".
 FORCE_KERNEL = None
 
 # Stacked calls of at least this many polys go to the four-step kernel, the
@@ -160,17 +160,25 @@ class Ring:
     def _route(self, x: torch.Tensor) -> str:
         """Which implementation serves a transform of ``x``.
 
-        The routing is the JAX package's (``lattigo_tpu/ops/ring.py:207-237``):
-        stacked calls (batch >= 2) at a supported N go to the int8 four-step
-        kernel, everything else, N < 4096 included, to the row kernel.  Both
-        wrappers take their plain version for a CPU tensor."""
-        from lattigo_tpu_torch.ops import mxu_ntt
+        Up to N = 16384 the routing is the JAX package's
+        (``lattigo_tpu/ops/ring.py:207-237``): stacked calls (batch >= 2) at
+        a supported N go to the int8 four-step kernel, everything else,
+        N < 4096 included, to the row kernel.  Every transform the row kernel
+        cannot hold (N > 16384) and the four-step kernel does not take goes
+        to the two-pass kernel: N = 65536 at any batch, N = 32768 at batch 1.
+        This departs from the JAX package, which sends N = 65536 at batch
+        < 64 to its row kernel because a TPU holds a 512 KB row in VMEM; no
+        H100 block holds one (227 KB of shared memory at most).  Every
+        wrapper takes its plain version for a CPU tensor."""
+        from lattigo_tpu_torch.ops import mxu_ntt, tile_ntt
 
         if FORCE_KERNEL is not None:
             return FORCE_KERNEL
         if (self.n >= 4096 and mxu_ntt.supported(self.n)
                 and self._batch_of(x) >= _MXU_MIN_BATCH):
             return "mxu"
+        if self.n > tile_ntt.MAX_N:
+            return "passes"
         return "tile"
 
     def _transform(self, x: torch.Tensor, limbs, inverse: bool) -> torch.Tensor:
@@ -184,6 +192,10 @@ class Ring:
             from lattigo_tpu_torch.ops import tile_ntt
 
             return tile_ntt.ntt_tile(self, x, limbs, inverse=inverse)
+        if route == "passes":
+            from lattigo_tpu_torch.ops import pallas_ntt
+
+            return pallas_ntt.ntt_passes(self, x, limbs, inverse=inverse)
         if route == "plain":
             return self._intt_simple(x, limbs) if inverse else self._ntt_simple(x, limbs)
         raise ValueError(f"unknown FORCE_KERNEL {route!r}")
@@ -285,10 +297,24 @@ class Ring:
         q, u0, u1, _ = self._qc(a)
         return modred.mform(a, q, u0, u1)
 
+    def inv_mform(self, a):
+        q, _, _, qinv = self._qc(a)
+        return modred.inv_mform(a, q, qinv)
+
     def mul_coeffs_montgomery(self, a, b):
         """a .* b * 2^-64 mod q (one operand in Montgomery form)."""
         q, _, _, qinv = self._qc(a)
         return modred.mred(a, b, q, qinv)
+
+    def mul_coeffs_montgomery_limbs(self, a, b, limbs: tuple[int, ...]):
+        """mul_coeffs_montgomery where limb row k of a/b lives under modulus
+        ``limbs[k]`` (non-prefix limb selections: stacked key-switch planes)."""
+        q = self._tbl_rows(self.q_, limbs)
+        return modred.mred(a, b, q, self._tbl_rows(self.qinv_, limbs))
+
+    def reduce_limbs(self, a, limbs: tuple[int, ...]):
+        """BRedAdd exact reduction with explicit limb-table indices."""
+        return modred.bred_add(a, self._tbl_rows(self.q_, limbs), self._tbl_rows(self.u0_, limbs))
 
     def mul_coeffs_montgomery_and_add(self, a, b, c):
         q, _, _, qinv = self._qc(a)
@@ -331,8 +357,13 @@ class Ring:
         return u.from_u64(rows, self.device)
 
     def poly_to_bigint(self, x: torch.Tensor) -> list[int]:
+        """List-of-ints view of :meth:`poly_to_bigint_vec`."""
+        return self.poly_to_bigint_vec(x).tolist()
+
+    def poly_to_bigint_vec(self, x: torch.Tensor) -> np.ndarray:
         """CRT reconstruction over the carried limbs
-        (ring/ring_context.go:384-421)."""
+        (ring/ring_context.go:384-421): an object array of Python ints in
+        [0, prod(q_i)), built with whole-row big-int ufunc loops."""
         arr = u.to_u64(x)
         L = arr.shape[-2]
         mod = 1
@@ -344,4 +375,4 @@ class Ring:
             crt = mod // qi
             crt *= pow(crt, -1, qi)
             acc += arr[i].astype(object) * crt
-        return (acc % mod).tolist()
+        return acc % mod

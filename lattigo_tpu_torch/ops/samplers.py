@@ -98,7 +98,23 @@ def ternary_poly(gen, ring, p: float = 0.5, montgomery: bool = False, lvl: int |
     L = ring.L if lvl is None else lvl + 1
     shape = (*batch, 1, ring.n)
     is_zero = _bits(gen, shape, 30) < int(p * (1 << 30))
-    sign = _bits(gen, shape, 1)
+    return _ternary_map(ring, L, is_zero, _bits(gen, shape, 1), montgomery)
+
+
+def ternary_sparse_poly(gen, ring, hw: int, montgomery: bool = False, lvl: int | None = None) -> torch.Tensor:
+    """Exactly ``hw`` nonzero +-1 coefficients at uniformly drawn positions
+    (ternarySampler.go:203-250)."""
+    L = ring.L if lvl is None else lvl + 1
+    n = ring.n
+    pos = torch.randperm(n, generator=gen, device=gen.device)[:hw]
+    is_zero = torch.ones((1, n), dtype=torch.bool, device=gen.device)
+    is_zero[0, pos] = False
+    return _ternary_map(ring, L, is_zero, _bits(gen, (1, n), 1), montgomery)
+
+
+def _ternary_map(ring, L: int, is_zero, sign, montgomery: bool) -> torch.Tensor:
+    """Map {0, +1, -1} draws onto per-modulus residues
+    (values from ring/ring_context.go:109-123's ternary tables)."""
     if montgomery:
         one = [nt.mform(1, q) for q in ring.moduli[:L]]
         minus = [nt.mform(q - 1, q) for q in ring.moduli[:L]]

@@ -1,10 +1,11 @@
-"""BFV t/Q scaled reconstruction.
+"""RNS rescaling (divide by the last modulus) and BFV t/Q scaled
+reconstruction.
 
-Counterpart of ``SimpleScaler`` in ``lattigo_tpu/ops/scaling.py``
-(ring/ring_scaling.go:168-300).  The fraction is computed with exact integer
+Counterpart of ``lattigo_tpu/ops/scaling.py`` (ring/ring_scaling.go).  The
+divide-by-last-modulus functions serve CKKS's rescale; ``SimpleScaler``
+serves BFV's decoding.  Its fraction is computed with exact integer
 arithmetic, as in the JAX package: per-limb exact division through Montgomery
-inverse words plus a 58-bit fixed-point rounding term.  The divide-by-last-
-modulus functions of that module belong to CKKS and are not ported yet.
+inverse words plus a 58-bit fixed-point rounding term.
 """
 
 from __future__ import annotations
@@ -20,6 +21,79 @@ _F = 58  # fixed-point fractional bits for the rounding term
 
 def _col(vals, device) -> torch.Tensor:
     return u.from_u64(np.array(vals, dtype=np.uint64).reshape(-1, 1), device)
+
+
+def _rescale_tbl(ring, lvl: int) -> torch.Tensor:
+    return _col(ring.rescale_params[lvl - 1], ring.device)
+
+
+def _consts(ring, lvl: int):
+    """q, qinv, u0 of the limbs kept when limb ``lvl`` is dropped."""
+    return ring.q_[:lvl], ring.qinv_[:lvl], ring.u0_[:lvl]
+
+
+def _bcast_limb(limb: torch.Tensor, count: int) -> torch.Tensor:
+    return limb.expand(*limb.shape[:-2], count, limb.shape[-1])
+
+
+def div_floor_by_last_modulus(ring, x: torch.Tensor) -> torch.Tensor:
+    """floor(x / q_last) per remaining limb, coefficient domain
+    (ring/ring_scaling.go:37-55).  Returns one fewer limb."""
+    lvl = ring.level_of(x)
+    q, qinv, u0 = _consts(ring, lvl)
+    last_mod_qi = modred.bred_add(x[..., -1:, :], q, u0)
+    return modred.mred(x[..., :-1, :] + (q - last_mod_qi), _rescale_tbl(ring, lvl), q, qinv)
+
+
+def div_floor_by_last_modulus_ntt(ring, x: torch.Tensor) -> torch.Tensor:
+    """Same, NTT domain in and out: only the dropped limb leaves the NTT
+    domain (ring/ring_scaling.go:9-34)."""
+    lvl = ring.level_of(x)
+    last_coeff = ring.intt_limbs(x[..., -1:, :], (lvl,))
+    tmp = ring.ntt_limbs(_bcast_limb(last_coeff, lvl), tuple(range(lvl)))
+    q, qinv, _ = _consts(ring, lvl)
+    return modred.mred(x[..., :-1, :] + (q - tmp), _rescale_tbl(ring, lvl), q, qinv)
+
+
+def _half_shift(ring, lvl: int):
+    """(q_last - 1) / 2 and its negation mod each kept q_i: the shift that
+    turns the floor into a rounding."""
+    p_half = (ring.moduli[lvl] - 1) >> 1
+    neg = _col([qi - p_half % qi for qi in ring.moduli[:lvl]], ring.device)
+    return p_half, neg
+
+
+def div_round_by_last_modulus(ring, x: torch.Tensor) -> torch.Tensor:
+    """round(x / q_last) (ring/ring_scaling.go:117-149)."""
+    lvl = ring.level_of(x)
+    p_half, p_half_neg = _half_shift(ring, lvl)
+    last = modred.cred(x[..., -1:, :] + p_half, ring.q_[lvl : lvl + 1])
+    q, qinv, u0 = _consts(ring, lvl)
+    shifted = modred.bred_add(last + p_half_neg, q, u0)
+    return modred.mred(x[..., :-1, :] + (q - shifted), _rescale_tbl(ring, lvl), q, qinv)
+
+
+def div_round_by_last_modulus_ntt(ring, x: torch.Tensor) -> torch.Tensor:
+    """round(x / q_last), NTT domain in and out (ring/ring_scaling.go:72-114)."""
+    lvl = ring.level_of(x)
+    p_half, p_half_neg = _half_shift(ring, lvl)
+    last_coeff = ring.intt_limbs(x[..., -1:, :], (lvl,))
+    last_coeff = modred.cred(last_coeff + p_half, ring.q_[lvl : lvl + 1])
+    tmp = ring.ntt_limbs(_bcast_limb(last_coeff, lvl) + p_half_neg, tuple(range(lvl)))
+    q, qinv, _ = _consts(ring, lvl)
+    return modred.mred(x[..., :-1, :] + (q - tmp), _rescale_tbl(ring, lvl), q, qinv)
+
+
+def div_floor_by_last_modulus_many(ring, x: torch.Tensor, nb: int) -> torch.Tensor:
+    for _ in range(nb):
+        x = div_floor_by_last_modulus(ring, x)
+    return x
+
+
+def div_round_by_last_modulus_many(ring, x: torch.Tensor, nb: int) -> torch.Tensor:
+    for _ in range(nb):
+        x = div_round_by_last_modulus(ring, x)
+    return x
 
 
 class SimpleScaler:
