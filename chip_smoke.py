@@ -317,8 +317,10 @@ def phase_kernels() -> None:
             for name in ("ntt_tile", "ntt_mxu"):
                 if not takes(name, n):
                     continue
-                # batch 17 is no multiple of any block of polys
-                for batch in ((1,) if name == "ntt_mxu" else (), (3,), (17,)):
+                # batch 17 is no multiple of any block of polys; 72 fills
+                # several row tiles of the four-step kernel per limb
+                batches = ((1,), (3,), (17,), (72,)) if name == "ntt_mxu" else ((), (3,), (17,))
+                for batch in batches:
                     for limbs in ((0, 1, 2), (2, 0), (2,)):
                         for inverse in (False, True):
                             seed += 1
@@ -326,6 +328,15 @@ def phase_kernels() -> None:
                             err = check_equal(name, ring, x, limbs, inverse)
                             results.append(dict(kernel=name, n=n, bits=bits, batch=list(batch),
                                                 limbs=list(limbs), inverse=inverse, err=err))
+                if name == "ntt_mxu":
+                    # the four-step kernel takes any input below 2^62
+                    for inverse in (False, True):
+                        seed += 1
+                        rng = np.random.default_rng(seed)
+                        x = u.from_u64(rng.integers(0, 2**62, size=(3, 2, n), dtype=np.uint64), DEV)
+                        err = check_equal(name, ring, x, (2, 0), inverse)
+                        results.append(dict(kernel=name, n=n, bits=bits, batch=[3], limbs=[2, 0],
+                                            inverse=inverse, err=err, below=2**62))
     # the two-pass kernel from N = 2^12 to 2^16, and its smallest and largest
     # N (every split k = 1..4), every prime size of the default sets, prefix
     # and non-prefix limbs

@@ -13,27 +13,35 @@ product first, inverse the lanes product first.  Each 60-bit modular product
 is ONE s8 x s8 -> s32 product over byte digits: for every input digit d the
 matrix (M * 2^{8d} mod q) is split into 8 balanced s8 digits e, stacked into
 one operand, so the contraction over (j, d) yields the 8 output digit planes
-of the true product, each below 2^31.  Data bytes go in as (u ^ 0x80) int8;
-the -128 * (row or column sum) correction and a positivity offset are one
-broadcast add.  The planes are recombined in uint64 (one Shoup product by
-2^40 mod q), multiplied by the middle twiddle (Shoup, lazy), digitised again,
-and reduced exactly once at the very end.  Any input below 2^62 is accepted.
+of the true product, each below 2^31.  The host tables keep the JAX
+package's format (data bytes as (u ^ 0x80) int8, a -128 * (row or column sum)
+correction plus a positivity offset); the device takes the raw bytes u as u8
+against the s8 matrix, whose plane sum(M * u) + off is the same integer, so
+only the offset is left.  The planes are recombined in uint64 (one Shoup
+product by 2^40 mod q), multiplied by the middle twiddle (Shoup, lazy),
+digitised again, and reduced exactly once at the very end.  Any input below
+2^62 is accepted.
 
-The kernel is ``csrc/ntt_fourstep.cu``: the digit products run on the int8
-tensor cores inside the kernel (``nvcuda::wmma``, 16x16x16 s8 fragments, s32
-accumulators) and the recombine / twiddle / final-reduce epilogue runs in the
-same kernel in 64-bit registers.  This first version uses two launches per
-transform (first product + twiddle, then second product + final reduction)
-with the [B, L, n1, 128] intermediate in device memory.  One block serves one
-(poly, limb, tile), so any batch runs without padding; the TPU kernel's
-blocks of up to 16 polys, its pad path and its 3-deep DMA ring are that
-machine's way to feed its matrix unit and are not carried over.
+The kernel is ``csrc/ntt_fourstep.cu``.  Polys that share a limb share its
+digit matrices, so each product is one int8 GEMM per limb over all of its
+polys: rows C[(e, a), (p, j2)] (matrix on the left) and lanes
+C[(p, j1), (e, c)] (data on the left).  The contraction runs over (b, d) or
+(j2, d), so 4 consecutive contraction indices are 4 consecutive bytes of a
+little-endian u64: the data are copied as they lie in memory.  The matrices
+are permuted on the host into the order their ``mma.sync.m16n8k32``
+fragments read them (:func:`rows_layout`, :func:`lanes_layout`).  Both
+products stream their operands through a 4-stage ``cp.async`` ring in
+shared memory (a matrix strip serves 128 output columns or rows), and the
+recombine / twiddle / final-reduce epilogue runs from the accumulator
+registers, which hold all 8 planes of the same outputs.  Two launches per
+transform, the [B, L, n1, 128] intermediate in device memory.
 
-Bound on the GPU: by the roofline, bytes (16 N bytes per limb-poly against
-2*(8 n1)^2*128 + 2*n1*1024^2 int8 operations).  What holds this version back
-is that every block streams its whole digit matrix (up to 4 MB) from L2 for
-one 16-wide tile; sharing the matrix fragments across polys and tiles, and
-fusing the two launches, is later work.
+Bound on the GPU (``chip_smoke.bound_ms``): the larger of the int8
+operations (2 (8 n1)^2 128 + 2 n1 1024^2 per limb-poly) over the int8 peak
+and the bytes (16 N per limb-poly plus the tables) over the memory rate:
+operations at N = 16384, bytes at N = 4096.  ``mma.sync`` reaches only part
+of the int8 peak (``wgmma`` is the way to the rest), and one block of 8
+warps fills an SM's registers; ``PERF.md`` has the measured times.
 
 Plain version: :func:`ntt_mxu_plain` repeats the same arithmetic step by step
 on tensors, with the digit products as float64 matmuls (exact below 2^53,
@@ -55,7 +63,6 @@ from lattigo_tpu_torch.ops import u64 as u
 
 _N2 = 128  # lane-axis transform length
 _DIG = 8   # 8-bit digits per 64-bit word
-_TILE = 16  # tensor-core fragment edge
 
 
 def supported(n: int) -> bool:
@@ -80,6 +87,12 @@ def _balanced_digits(m: np.ndarray) -> np.ndarray:
     return np.stack(planes, axis=0)
 
 
+def _offset(contraction: int) -> int:
+    """The positivity offset ``_digit_matrix`` adds to every plane of a
+    product over ``contraction`` byte digits."""
+    return 1 << int(contraction * 128 * 255).bit_length()
+
+
 def _digit_matrix(m: np.ndarray, q: int, contract_first: bool):
     """Fold the per-digit scale into a modular matrix and digit-decompose it.
 
@@ -93,8 +106,7 @@ def _digit_matrix(m: np.ndarray, q: int, contract_first: bool):
     for d in range(_DIG):
         folded[d] = ((mo * pow(1 << (8 * d), 1, q)) % q).astype(np.int64)
     dig = _balanced_digits(folded)  # [e, d, a, b]
-    contraction = _DIG * (a if contract_first else b)
-    off = 1 << int(contraction * 128 * 255).bit_length()
+    off = _offset(_DIG * (a if contract_first else b))
     if contract_first:
         # operand [(d, a), (e, b)]; correction per output column (e, b)
         op = dig.transpose(1, 2, 0, 3).reshape(_DIG * a, _DIG * b)
@@ -186,44 +198,89 @@ def _tables_host(ring, limbs: tuple[int, ...], inverse: bool) -> dict:
     )
 
 
-def _tile_major(m: np.ndarray) -> np.ndarray:
-    """[R, C] -> [R/16, C/16, 16, 16]: every 16x16 fragment contiguous and
-    256-byte aligned, as the kernel's fragment loads want it."""
-    r, c = m.shape
-    return np.ascontiguousarray(
-        m.reshape(r // _TILE, _TILE, c // _TILE, _TILE).transpose(0, 2, 1, 3)
-    )
+# Device layout of the digit matrices.  The contraction runs over (b, d) or
+# (j2, d), so 4 consecutive contraction indices are 4 consecutive bytes of one
+# little-endian u64 of the data, which is what an m16n8k32 fragment register
+# holds.  Each matrix is stored in the order its mma.sync fragments read it:
+# one 16-byte group per lane (g = lane >> 2, t = lane & 3), a warp's 32 lanes
+# contiguous (512 bytes), so a fragment load is one conflict-free 16-byte
+# shared-memory read per lane, and a block's strip is a few contiguous runs.
+#
+# Rows matrix [(e, a), (b, d)] (the A operand, row-major 16 x 32 tiles):
+#   [at = a/16][ks = k/32][e][g][t][kh][h][byte]   a = 16 at + 8 h + g,
+#   k = 32 ks + 16 kh + 4 t + byte; register kh * 2 + h of lane (g, t).
+# Lanes matrix [(j2, d), (e, c)] (the B operand, 32 x 8 column tiles, two
+# planes e = 2 ep + elo per 16-byte group):
+#   [ct = c/8][ks][ep][g][t][elo][kh][byte]   c = 8 ct + g, the same k.
+_ROWS_DIMS = "e at h g ks kh t byte"
+_ROWS_DEV = "at ks e g t kh h byte"
+_LANES_DIMS = "ks kh t byte ep elo ct g"
+_LANES_DEV = "ct ks ep g t elo kh byte"
+
+
+def _reorder(m: torch.Tensor, sizes: dict, src: str, dst: str) -> torch.Tensor:
+    src, dst = src.split(), dst.split()
+    return m.reshape([sizes[d] for d in src]).permute([src.index(d) for d in dst]).contiguous()
+
+
+def _rows_sizes(n1: int) -> dict:
+    return dict(e=_DIG, at=n1 // 16, h=2, g=8, ks=n1 // 4, kh=2, t=4, byte=4)
+
+
+_LANES_SIZES = dict(ks=_DIG * _N2 // 32, kh=2, t=4, byte=4, ep=_DIG // 2, elo=2, ct=_N2 // 8, g=8)
+
+
+def rows_layout(op: np.ndarray) -> torch.Tensor:
+    """JAX-format rows operand [(e, a), (d, b)] -> flat device layout."""
+    n1 = op.shape[0] // _DIG
+    m = torch.from_numpy(op).reshape(_DIG, n1, _DIG, n1).permute(0, 1, 3, 2)  # e a b d
+    return _reorder(m, _rows_sizes(n1), _ROWS_DIMS, _ROWS_DEV).reshape(-1)
+
+
+def rows_matrix(flat: torch.Tensor, n1: int) -> torch.Tensor:
+    """Device layout -> [(e, a), (b, d)], the kernel's contraction order."""
+    return _reorder(flat, _rows_sizes(n1), _ROWS_DEV, _ROWS_DIMS).reshape(_DIG * n1, _DIG * n1)
+
+
+def lanes_layout(op: np.ndarray) -> torch.Tensor:
+    """JAX-format lanes operand [(d, j2), (e, c)] -> flat device layout."""
+    m = torch.from_numpy(op).reshape(_DIG, _N2, _DIG, _N2).permute(1, 0, 2, 3)  # j2 d e c
+    return _reorder(m, _LANES_SIZES, _LANES_DIMS, _LANES_DEV).reshape(-1)
+
+
+def lanes_matrix(flat: torch.Tensor) -> torch.Tensor:
+    """Device layout -> [(j2, d), (e, c)], the kernel's contraction order."""
+    return _reorder(flat, _LANES_SIZES, _LANES_DEV, _LANES_DIMS).reshape(_DIG * _N2, _DIG * _N2)
 
 
 class _DeviceTables:
     """Device operands of a whole ring for one direction, indexed by ring
-    limb; a limb's slice is filled the first time a transform names it."""
+    limb; a limb's slice is filled the first time a transform names it.
+    consts[l] = q, 2^40 mod q, its Shoup word, the final offset correction,
+    Barrett u0, the rows and the lanes product's plane offset."""
 
     def __init__(self, ring, inverse: bool):
         self.ring, self.inverse = ring, inverse
         n1, Lr, dev = ring.n // _N2, ring.L, ring.device
-        k, kt = _DIG * n1, _DIG * n1 // _TILE
-        lt = _DIG * _N2 // _TILE
-        self.m_rows = torch.zeros((Lr, kt, kt, _TILE, _TILE), dtype=torch.int8, device=dev)
-        self.c_rows = torch.zeros((Lr, k), dtype=torch.int32, device=dev)
-        self.m_lanes = torch.zeros((Lr, lt, lt, _TILE, _TILE), dtype=torch.int8, device=dev)
-        self.c_lanes = torch.zeros((Lr, _DIG * _N2), dtype=torch.int32, device=dev)
+        self.m_rows = torch.zeros((Lr, (_DIG * n1) ** 2), dtype=torch.int8, device=dev)
+        self.m_lanes = torch.zeros((Lr, (_DIG * _N2) ** 2), dtype=torch.int8, device=dev)
         self.tw = torch.zeros((Lr, 3, n1, _N2), dtype=torch.int64, device=dev)
         self.consts = torch.zeros((Lr, 8), dtype=torch.int64, device=dev)
         self.ready: set[int] = set()
 
     def need(self, limbs) -> "_DeviceTables":
         ring, dev = self.ring, self.ring.device
+        n1 = ring.n // _N2
         for l in set(limbs) - self.ready:
-            m_rows, c_rows, m_lanes, c_lanes, twt, consts = _limb_tables(
+            m_rows, _, m_lanes, _, twt, consts = _limb_tables(
                 ring.moduli[l], ring.n, int(ring.psi_mont[l]), ring.bred[l][0], self.inverse
             )
-            self.m_rows[l] = torch.from_numpy(_tile_major(m_rows)).to(dev)
-            self.c_rows[l] = torch.from_numpy(c_rows.reshape(-1)).to(dev)
-            self.m_lanes[l] = torch.from_numpy(_tile_major(m_lanes)).to(dev)
-            self.c_lanes[l] = torch.from_numpy(c_lanes.reshape(-1)).to(dev)
+            self.m_rows[l] = rows_layout(m_rows).to(dev)
+            self.m_lanes[l] = lanes_layout(m_lanes).to(dev)
             self.tw[l] = u.from_u64(twt, dev)
             self.consts[l, :5] = u.from_u64(consts, dev)
+            self.consts[l, 5] = _offset(_DIG * n1)
+            self.consts[l, 6] = _offset(_DIG * _N2)
             self.ready.add(l)
         return self
 
@@ -252,43 +309,37 @@ def _check(ring, x: torch.Tensor, limbs) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _untile(m: torch.Tensor) -> torch.Tensor:
-    """[L, R/16, C/16, 16, 16] -> [L, R, C] float64."""
-    L, rt, ct = m.shape[:3]
-    return m.permute(0, 1, 3, 2, 4).reshape(L, rt * _TILE, ct * _TILE).to(torch.float64)
-
-
-def _digits(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Byte digits of x as (u ^ 0x80) int8 values, i.e. u - 128, digit-major
-    along ``dim``, as float64."""
-    return torch.cat(
-        [(u.shr(x, 8 * d) & 255) - 128 for d in range(_DIG)], dim=dim
-    ).to(torch.float64)
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """[..., w] -> [..., w, 8]: the raw little-endian bytes of each u64."""
+    return torch.stack([u.shr(x, 8 * d) & 255 for d in range(_DIG)], dim=-1)
 
 
 def ntt_mxu_plain(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = False) -> torch.Tensor:
-    """The four-step transform step by step on tensors; bit-equal to the
-    kernel and to the butterfly schedule."""
+    """The four-step transform step by step on tensors, in the kernel's
+    contraction order (raw data bytes against the device-layout matrices,
+    plus the plane offset); bit-equal to the kernel and to the butterfly
+    schedule.  The digit products are float64 matmuls, exact below 2^53."""
     limbs = tuple(int(l) for l in limbs)
     _check(ring, x, limbs)
     t = _tables(ring, limbs, inverse)
     idx = list(limbs)
-    n, n1, L = ring.n, ring.n // _N2, len(limbs)
-    m_rows, m_lanes = _untile(t.m_rows[idx]), _untile(t.m_lanes[idx])
-    c_rows = t.c_rows[idx].to(torch.int64).reshape(L, _DIG, n1, 1)
-    c_lanes = t.c_lanes[idx].to(torch.int64).reshape(L, 1, _DIG, _N2)
+    n1, L = ring.n // _N2, len(limbs)
+    m_rows = torch.stack([rows_matrix(t.m_rows[l], n1) for l in idx]).to(torch.float64)
+    m_lanes = torch.stack([lanes_matrix(t.m_lanes[l]) for l in idx]).to(torch.float64)
     tw, tsh, tco = t.tw[idx].unbind(1)  # [L, n1, 128] each
-    q, c40, c40s, cf, u0 = (t.consts[idx, k].reshape(L, 1, 1) for k in range(5))
+    q, c40, c40s, cf, u0, off_r, off_l = (t.consts[idx, k].reshape(L, 1, 1) for k in range(7))
 
     def rows_mm(data):
-        # matrix on the left, contraction over (d, j1)
-        o = torch.matmul(m_rows, _digits(data, -2)).to(torch.int64)
-        return (o.reshape(-1, L, _DIG, n1, _N2) + c_rows).unbind(2)
+        # matrix on the left, contraction over (b, d): [.., (b, d), j2]
+        op = _bytes(data).transpose(-1, -2).reshape(-1, L, _DIG * n1, _N2)
+        o = torch.matmul(m_rows, op.to(torch.float64)).to(torch.int64)
+        return (o.reshape(-1, L, _DIG, n1, _N2) + off_r.unsqueeze(1)).unbind(2)
 
     def lanes_mm(data):
-        # data on the left, contraction over (d, j2)
-        o = torch.matmul(_digits(data, -1), m_lanes).to(torch.int64)
-        return (o.reshape(-1, L, n1, _DIG, _N2) + c_lanes).unbind(3)
+        # data on the left, contraction over (j2, d): [.., j1, (j2, d)]
+        op = _bytes(data).reshape(-1, L, n1, _DIG * _N2)
+        o = torch.matmul(op.to(torch.float64), m_lanes).to(torch.int64)
+        return (o.reshape(-1, L, n1, _DIG, _N2) + off_l.unsqueeze(2)).unbind(3)
 
     def combine(p):
         lo = p[0] + (p[1] << 8) + (p[2] << 16) + (p[3] << 24) + (p[4] << 32)
@@ -314,7 +365,7 @@ def _library():
     if _lib is None:
         lib = _build.load("ntt_fourstep")
         lib.ntt_fourstep_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         lib.ntt_fourstep_launch.restype = ctypes.c_int
         _lib = lib
@@ -335,14 +386,15 @@ def ntt_mxu(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = False
         raise ValueError(f"x on {x.device}, ring tables on {ring.device}")
     t = _tables(ring, limbs, inverse)
     xc = x.contiguous()
+    if xc.data_ptr() % 16:  # the kernel copies 16-byte groups
+        xc = xc.clone()
     mid = torch.empty_like(xc)
     out = torch.empty_like(xc)
     n = ring.n
     with torch.cuda.device(x.device):
         err = _library().ntt_fourstep_launch(
             xc.data_ptr(), mid.data_ptr(), out.data_ptr(),
-            t.m_rows.data_ptr(), t.c_rows.data_ptr(), t.m_lanes.data_ptr(),
-            t.c_lanes.data_ptr(), t.tw.data_ptr(), t.consts.data_ptr(),
+            t.m_rows.data_ptr(), t.m_lanes.data_ptr(), t.tw.data_ptr(), t.consts.data_ptr(),
             ring.limb_vector(limbs).data_ptr(),
             xc.numel() // n, len(limbs), n // _N2, int(inverse),
             torch.cuda.current_stream().cuda_stream,

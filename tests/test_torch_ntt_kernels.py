@@ -1,8 +1,10 @@
 """The plain versions of the port's two NTT kernels against the TPU kernels
 they replace, run as the JAX package's own tests run them on the CPU
-(Pallas interpret mode), bit for bit at N = 4096; and the port's host tables
-of the four-step kernel against the JAX package's, array by array.  The CUDA
-kernels themselves are held against these plain versions on the GPU by
+(Pallas interpret mode), bit for bit at N = 4096; the four-step plain version
+at N = 8192 ... 32768 against the port's butterflies; the port's host tables
+of the four-step kernel against the JAX package's, array by array, and their
+device layout against the mma.sync fragment layout.  The CUDA kernels
+themselves are held against these plain versions on the GPU by
 chip_smoke.py.  Integers, tolerance 0."""
 
 import jax
@@ -106,13 +108,64 @@ def test_fourstep_tables_equal(rings, limbs, inverse):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
-def test_tile_major_layout_roundtrip():
-    m = np.arange(64 * 32, dtype=np.int64).reshape(64, 32).astype(np.int8)
-    tiled = tmxu._tile_major(m)
-    assert tiled.shape == (4, 2, 16, 16)
-    np.testing.assert_array_equal(tiled[2, 1], m[32:48, 16:32])
-    back = tmxu._untile(torch.from_numpy(tiled)[None])[0].numpy()
-    np.testing.assert_array_equal(back, m.astype(np.float64))
+@pytest.mark.parametrize("kind", ["rows", "lanes"])
+def test_fragment_layout_roundtrip(kind):
+    """The device layout puts every entry where the m16n8k32 fragment of
+    its lane reads it, and reads back to the kernel's contraction order."""
+    rng = np.random.default_rng(5)
+    n1 = 32
+    side = 8 * (n1 if kind == "rows" else 128)
+    op = rng.integers(-128, 128, size=(side, side), dtype=np.int8)  # JAX format
+    if kind == "rows":  # [(e, a), (d, b)] -> [(e, a), (b, d)]
+        want = op.reshape(8, n1, 8, n1).transpose(0, 1, 3, 2).reshape(side, side)
+        flat = tmxu.rows_layout(op)
+        back = tmxu.rows_matrix(flat, n1)
+        # [at][ks][e][lane][reg = 2 kh + h][byte]: A[g + 8 h, 16 kh + 4 t + byte]
+        at, ks, e, lane, reg, byte = np.indices((n1 // 16, n1 // 4, 8, 32, 4, 4))
+        g, t, h, kh = lane >> 2, lane & 3, reg & 1, reg >> 1
+        ref = want[e * n1 + 16 * at + g + 8 * h, 32 * ks + 16 * kh + 4 * t + byte]
+    else:  # [(d, j2), (e, c)] -> [(j2, d), (e, c)]
+        want = op.reshape(8, 128, 8, 128).transpose(1, 0, 2, 3).reshape(side, side)
+        flat = tmxu.lanes_layout(op)
+        back = tmxu.lanes_matrix(flat)
+        # [ct][ks][ep][lane][elo][kh][byte]: B[16 kh + 4 t + byte, c = 8 ct + g] of plane 2 ep + elo
+        ct, ks, ep, lane, elo, kh, byte = np.indices((16, 32, 4, 32, 2, 2, 4))
+        g, t = lane >> 2, lane & 3
+        ref = want[32 * ks + 16 * kh + 4 * t + byte, (2 * ep + elo) * 128 + 8 * ct + g]
+    np.testing.assert_array_equal(flat.numpy(), ref.reshape(-1))
+    np.testing.assert_array_equal(back.numpy(), want)
+
+
+@pytest.mark.parametrize("log_n", [13, 14, 15])
+def test_fourstep_plain_matches_butterflies_large_n(log_n):
+    """n1 = 64, 128, 256 at 60-bit primes, inputs lazily reduced up to
+    2^62 - 1, both directions, against the port's butterflies (held against
+    the JAX package by tests/test_torch_ring.py) on the inputs mod q."""
+    n = 1 << log_n
+    moduli = nt.generate_ntt_primes(60, log_n, 2)
+    ring = TRing(n, moduli, device="cpu")
+    limbs = (1, 0)
+    x = np.random.default_rng(log_n).integers(0, 2**62, size=(2, 2, n), dtype=np.uint64)
+    xq = x % np.array([moduli[l] for l in limbs], dtype=np.uint64)[:, None]
+    got = tmxu.ntt_mxu_plain(ring, T(x), limbs)
+    np.testing.assert_array_equal(tu.to_u64(got), tu.to_u64(ring._ntt_simple(T(xq), limbs)))
+    got = tmxu.ntt_mxu_plain(ring, T(x), limbs, inverse=True)
+    np.testing.assert_array_equal(tu.to_u64(got), tu.to_u64(ring._intt_simple(T(xq), limbs)))
+
+
+def test_fourstep_variants_apply_to_the_kernel_source():
+    """Every diagnostic variant of lattigo_tpu_torch/tools/fourstep_variants.py
+    still finds the text it replaces in csrc/ntt_fourstep.cu."""
+    import os
+
+    from lattigo_tpu_torch import _build
+    from lattigo_tpu_torch.tools import fourstep_variants as fv
+
+    src = open(os.path.join(_build.CSRC, "ntt_fourstep.cu")).read()
+    assert fv.VARIANTS["kernel"] == []
+    for name, subs in fv.VARIANTS.items():
+        for old, new in subs:
+            assert src.count(old) >= 1 and old != new, (name, old)
 
 
 def test_supported_sizes():
