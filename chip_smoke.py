@@ -13,21 +13,28 @@ at PN12QP109 and, at full width, at PN14QP438 with 16 stacked ciphertext
 pairs; the CKKS path (keygen with a sparse secret, encode, encrypt,
 multiply + relinearize + rescale, rotate by one slot, conjugate, decrypt,
 decode) at PN16QP1761 with 8 stacked ciphertext pairs; and one BFV multiply
-at PN15QP880, whose single-poly transforms at N = 32768 only the two-pass
-kernel holds.  Every phase prints one JSON line; any failure exits
+at PN15QP880, whose single-poly transforms at N = 32768 only the long-row
+(cluster) kernel holds.  Every phase prints one JSON line; any failure exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, main_path,
 full_width, ckks, bfv15, and ``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
 device's idle share); ``--batch`` sets the PN14QP438 batch;
-``--verbose-build`` prints ptxas' resource report.
+``--verbose-build`` adds ptxas' registers and spills of every kernel to the
+``build`` line; ``--baseline-passes PATH`` builds an earlier version of
+``csrc/ntt_passes.cu`` (the C entry of the two-launch kernel: rows, L,
+log N, k, inverse) and times it beside the current kernel, in turns, on the
+same inputs wherever the long-row kernel is timed.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +70,7 @@ MULS_PER_BUTTERFLY = 10
 MIN_PREC = 12.0  # median bits of a CKKS decoding (tests/test_ckks.py)
 CKKS_BATCH = 8  # ciphertext pairs stacked at PN16QP1761
 REPS = 20
+BASELINE = None  # the library of --baseline-passes, when given
 
 KERNELS = {
     "ntt_tile": dict(
@@ -130,6 +138,16 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def time_turns(fns, reps: int = REPS // 2) -> list[float]:
+    """Times of ``fns`` on one card taken in turns (a, b, b, a): the mean of
+    each one's two medians."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        times[i].append(time_ms(fns[i], reps))
+    return [statistics.mean(t) for t in times]
+
+
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
@@ -172,6 +190,14 @@ def rand_input(ring, batch, limbs, lazy_mult: int, seed: int) -> torch.Tensor:
     return u.from_u64(x, DEV)
 
 
+def const_input(ring, batch, limbs, below_mult: int) -> torch.Tensor:
+    """Every residue of limb row l equal to below_mult * q_l - 1."""
+    x = np.empty((*batch, len(limbs), ring.n), dtype=np.uint64)
+    for k, l in enumerate(limbs):
+        x[..., k, :] = below_mult * ring.moduli[l] - 1
+    return u.from_u64(x, DEV)
+
+
 def check_equal(name, ring, x, limbs, inverse) -> int:
     """Kernel vs plain on the same input; returns the max abs difference."""
     got = KERNELS[name]["wrapper"](ring, x, limbs, inverse=inverse)
@@ -187,7 +213,7 @@ def bound_ms(name: str, ring, batch_rows: int, limbs) -> tuple[float, str]:
     """The least time the GPU could take: each input (data and the tables of
     the limbs used) read once, each output written once, over the memory
     rate; for the four-step kernel also its int8 operations over the int8
-    tensor-core peak; for the two-pass kernel also its (N/2) log N Shoup
+    tensor-core peak; for the long-row kernel also its (N/2) log N Shoup
     butterflies per row, MULS_PER_BUTTERFLY int32 multiplies each, over the
     int32 multiply rate."""
     n, L = ring.n, len(limbs)
@@ -225,12 +251,60 @@ def phase_device() -> str:
     return line
 
 
+def ptxas_report(text: str) -> list[dict]:
+    """Registers and spill bytes of every kernel in ptxas' -v output."""
+    out = []
+    for block in re.split(r"ptxas info\s*: Compiling entry function ", text)[1:]:
+        name = block.split("'")[1]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        out.append(dict(kernel=name, registers=int(regs.group(1)) if regs else None,
+                        spill_stores=int(spill.group(1)) if spill else None,
+                        spill_loads=int(spill.group(2)) if spill else None))
+    return out
+
+
+def build_baseline(path: str):
+    """An earlier two-launch ``ntt_passes.cu`` built beside the current one."""
+    lib_path = os.path.join(_build.BUILD, "baseline", "libntt_passes_baseline.so")
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    proc = subprocess.run(
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-I", _build.CSRC, "-o", lib_path, path],
+        capture_output=True, text=True)
+    if proc.returncode:
+        fail(f"nvcc failed for the baseline {path}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.ntt_passes_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.ntt_passes_launch.restype = ctypes.c_int
+    return lib
+
+
+def baseline_passes(ring, x, limbs, inverse) -> torch.Tensor:
+    """The baseline's transform, at its own default split (chunks of at most
+    8192 coefficients, k up to 4)."""
+    n = ring.n
+    tw, tws, consts = tile_ntt._tables(ring, inverse)
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    err = BASELINE.ntt_passes_launch(
+        xc.data_ptr(), out.data_ptr(), tw.data_ptr(), tws.data_ptr(), consts.data_ptr(),
+        ring.limb_vector(limbs).data_ptr(), xc.numel() // n, len(limbs), ring.log_n,
+        max(1, (n >> 13).bit_length() - 1), int(inverse), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the baseline kernel failed to launch: CUDA error {err}")
+    return out
+
+
 def phase_build(verbose: bool) -> None:
     t0 = time.time()
-    _build.build(verbose=verbose)
+    logs = _build.build(verbose=verbose)
     for name in _build.SOURCES:
         _build.load(name)
-    emit("build", seconds=round(time.time() - t0, 3), sources=list(_build.SOURCES))
+    fields = dict(seconds=round(time.time() - t0, 3), sources=list(_build.SOURCES))
+    if verbose:
+        fields["ptxas"] = {name: ptxas_report(text) for name, text in logs.items()}
+    emit("build", **fields)
 
 
 def record_calls(run) -> list[tuple]:
@@ -259,11 +333,23 @@ def measure_shape(name, ring, shape, limbs, inverse, seed) -> dict:
     x = rand_input(ring, batch, limbs, lazy, seed)
     err = check_equal(name, ring, x, limbs, inverse)
     w = KERNELS[name]["wrapper"]
-    ms = time_ms(lambda: w(ring, x, limbs, inverse=inverse))
+
+    def kernel():
+        return w(ring, x, limbs, inverse=inverse)
+
+    extra = {}
+    if name == "ntt_passes" and BASELINE is not None:
+        if not torch.equal(baseline_passes(ring, x, limbs, inverse),
+                           plain_of(name, ring, x, limbs, inverse)):
+            fail(f"the baseline kernel disagrees with the plain version at {shape}")
+        ms, extra["baseline_ms"] = time_turns(
+            [kernel, lambda: baseline_passes(ring, x, limbs, inverse)])
+    else:
+        ms = time_ms(kernel)
     plain = time_ms(lambda: plain_of(name, ring, x, limbs, inverse), reps=5)
     b_ms, b_by = bound_ms(name, ring, rows, limbs)
     return dict(shape=list(shape), limbs=list(limbs), inverse=inverse, max_abs_err=err,
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
@@ -306,8 +392,9 @@ def measure_calls(calls, label: str) -> list[dict]:
 def phase_kernels() -> None:
     """Bit-equality (tolerance 0: integers) of each kernel with its plain
     version over a grid of sizes, primes, lazy inputs, limb subsets and
-    batches; and the two-pass kernel's time beside the other kernels' on
-    the same shapes."""
+    batches; and the long-row kernel's time beside the other kernels' (and
+    the baseline's, when given) on the same shapes, with its launch plan
+    for every N."""
     results = []
     seed = 100
     for log_n in (10, 11, 12, 13, 14, 15):
@@ -337,15 +424,17 @@ def phase_kernels() -> None:
                         err = check_equal(name, ring, x, (2, 0), inverse)
                         results.append(dict(kernel=name, n=n, bits=bits, batch=[3], limbs=[2, 0],
                                             inverse=inverse, err=err, below=2**62))
-    # the two-pass kernel from N = 2^12 to 2^16, and its smallest and largest
-    # N (every split k = 1..4), every prime size of the default sets, prefix
-    # and non-prefix limbs
+    # the long-row kernel from N = 2^12 to 2^16, and its smallest and largest
+    # N (clusters of 2, 4 and 8 blocks), every prime size of the default
+    # sets, prefix and non-prefix limbs; batch 5 of 3 limbs spreads the rows
+    # of one limb over clusters unevenly in the limb-major grid; every
+    # residue 4q - 1 is the largest input
     passes_times = []
     for log_n in (10, 12, 13, 14, 15, 16, 17):
         n = 1 << log_n
         for bits in (60, 55, 45, 39):
             ring = Ring(n, nt.generate_ntt_primes(bits, log_n, 3), device=DEV)
-            for batch in ((1,), (3,), (72,)):
+            for batch in ((1,), (3,), (5,), (72,)):
                 for limbs in ((0, 1, 2), (2, 0)):
                     for inverse in (False, True):
                         seed += 1
@@ -354,7 +443,12 @@ def phase_kernels() -> None:
                         results.append(dict(kernel="ntt_passes", n=n, bits=bits,
                                             batch=list(batch), limbs=list(limbs),
                                             inverse=inverse, err=err))
-            if bits == 60 and 12 <= log_n <= 16:
+            for inverse in (False, True):
+                x = const_input(ring, (3,), (0, 1, 2), 4)
+                err = check_equal("ntt_passes", ring, x, (0, 1, 2), inverse)
+                results.append(dict(kernel="ntt_passes", n=n, bits=bits, batch=[3],
+                                    limbs=[0, 1, 2], inverse=inverse, err=err, all_4q_minus_1=True))
+            if bits == 60 and 12 <= log_n:
                 for inverse in (False, True):
                     shape = (72, 3, n)
                     r = measure_shape("ntt_passes", ring, shape, (0, 1, 2), inverse, seed)
@@ -382,9 +476,10 @@ def phase_kernels() -> None:
     bad = [r for r in results if r["err"] != 0]
     if any(r["max_abs_err"] != 0 for r in passes_times):
         bad.append("ntt_passes timing shapes")
+    plans = {1 << e: pallas_ntt.launch_plan(1 << e)._asdict() for e in range(10, 18)}
     emit("kernels", cases=len(results), ok=not bad, failed=bad[:10],
          cases_by_kernel={k: sum(r["kernel"] == k for r in results) for k in KERNELS},
-         passes_times=passes_times)
+         passes_plans=plans, passes_times=passes_times)
     if bad:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
 
@@ -553,15 +648,18 @@ def kernel_rows(res: dict, names) -> list[dict]:
                 ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                 library_ms=None, path=res["label"], shape=s["shape"], limbs=s["limbs"],
                 other_kernel_ms=s["other_kernel_ms"],
+                **({"baseline_ms": s["baseline_ms"]} if "baseline_ms" in s else {}),
             ))
     return out
 
 
 def main() -> None:
+    global BASELINE
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,main_path,full_width,ckks,bfv15")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
+    ap.add_argument("--baseline-passes", default=None)
     args = ap.parse_args()
     phases = args.phases.split(",")
     torch.cuda.set_device(DEV)
@@ -569,6 +667,9 @@ def main() -> None:
     gpu = phase_device()
     if "build" in phases:
         phase_build(args.verbose_build)
+    if args.baseline_passes:
+        BASELINE = build_baseline(args.baseline_passes)
+        emit("baseline", source=args.baseline_passes)
     if "kernels" in phases:
         phase_kernels()
     summary = []
@@ -597,7 +698,7 @@ def main() -> None:
         passes = res["counts"]["ntt_passes_fwd"] + res["counts"]["ntt_passes_inv"]
         setup = res["setup_and_first_forward_counts"]
         if passes + setup["ntt_passes_fwd"] + setup["ntt_passes_inv"] == 0:
-            fail("PN15QP880: the two-pass kernel was never launched")
+            fail("PN15QP880: the long-row kernel was never launched")
     if "profile" in phases:
         phase_profile(lambda: entry(device=DEV), "PN12QP109")
         phase_profile(lambda: entry(device=DEV, params_idx=bfv.PN14QP438, batch=(args.batch,)),

@@ -44,11 +44,14 @@ def _stale(name: str) -> bool:
     )
 
 
-def build(names=SOURCES, verbose: bool = False) -> None:
-    """Compile every stale source of ``names`` for sm_90a, in parallel."""
+def build(names=SOURCES, verbose: bool = False) -> dict[str, str]:
+    """Compile every stale source of ``names`` for sm_90a, in parallel.
+    Returns nvcc's output for each source it compiled (with ``verbose``,
+    ptxas' resource report)."""
     todo = [n for n in names if _stale(n)]
+    logs: dict[str, str] = {}
     if not todo:
-        return
+        return logs
     os.makedirs(BUILD, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -69,11 +72,11 @@ def build(names=SOURCES, verbose: bool = False) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{out}")
             continue
-        if verbose and out:
-            print(out)
+        logs[name] = out
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

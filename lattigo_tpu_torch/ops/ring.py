@@ -165,8 +165,8 @@ class Ring:
         a supported N go to the int8 four-step kernel, everything else,
         N < 4096 included, to the row kernel.  Every transform the row kernel
         cannot hold (N > 16384) and the four-step kernel does not take goes
-        to the two-pass kernel: N = 65536 at any batch, N = 32768 at batch 1.
-        This departs from the JAX package, which sends N = 65536 at batch
+        to the long-row (cluster) kernel: N = 65536 at any batch, N = 32768
+        at batch 1.  This departs from the JAX package, which sends N = 65536 at batch
         < 64 to its row kernel because a TPU holds a 512 KB row in VMEM; no
         H100 block holds one (227 KB of shared memory at most).  Every
         wrapper takes its plain version for a CPU tensor."""

@@ -378,7 +378,7 @@ def jax_slice(world):
 @pytest.mark.parametrize("force", [None, "passes"])
 def test_slice_equal_and_decrypts(world, jax_slice, force, monkeypatch):
     """rescale(mul_relin) -> rotate_columns(1) -> conjugate, bit for bit;
-    with FORCE_KERNEL = "passes" every transform goes through the two-pass
+    with FORCE_KERNEL = "passes" every transform goes through the long-row
     kernel's plain version."""
     monkeypatch.setattr(tring_mod, "FORCE_KERNEL", force)
     t = world["t"]
