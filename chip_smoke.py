@@ -10,22 +10,29 @@ bit for bit against its plain PyTorch version at the shapes the main paths
 give it (and at a grid of other shapes), times them, then drives the BFV
 main path (keygen, encode, encrypt, multiply + relinearize, decrypt, decode)
 at PN12QP109 and, at full width, at PN14QP438 with 16 stacked ciphertext
-pairs; the CKKS path (keygen with a sparse secret, encode, encrypt,
+pairs; the small sets of the port's tests (log N = 8, BFV and CKKS) on
+rings made with ``device="cuda"``; the CKKS path (keygen with a sparse secret, encode, encrypt,
 multiply + relinearize + rescale, rotate by one slot, conjugate, decrypt,
 decode) at PN16QP1761 with 8 stacked ciphertext pairs; and one BFV multiply
 at PN15QP880, whose single-poly transforms at N = 32768 only the long-row
 (cluster) kernel holds.  Every phase prints one JSON line; any failure exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
-``--phases a,b`` runs a subset (device, build, kernels, main_path,
+``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
 full_width, ckks, bfv15, and ``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
-device's idle share); ``--batch`` sets the PN14QP438 batch;
-``--verbose-build`` adds ptxas' registers and spills of every kernel to the
-``build`` line; ``--baseline-passes PATH`` builds an earlier version of
+device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
+ptxas' registers and spills of every kernel to the ``build`` line;
+``--baseline-passes PATH`` builds an earlier version of
 ``csrc/ntt_passes.cu`` (the C entry of the two-launch kernel: rows, L,
-log N, k, inverse) and times it beside the current kernel, in turns, on the
-same inputs wherever the long-row kernel is timed.
+log N, k, inverse) and ``--baseline-row PATH`` one of ``csrc/ntt_row.cu``
+(the C entry of the first row kernel: separate plain and Shoup tables,
+rows, L, N, inverse), and each is timed beside the current kernel, in
+turns, on the same inputs wherever that kernel is timed.
+
+Every timed shape has ``ms`` (one call between two CUDA events, the host's
+time to issue it included) and ``device_ms`` (20 calls captured in one CUDA
+graph, replayed between two events, divided by 20: the device's time alone).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.ops.ring import Ring
+from lattigo_tpu_torch.tools.timing import event_ms, graph_ms
 from lattigo_tpu_torch.utils.precision import precision_stats
 
 DEV = torch.device("cuda", 0)
@@ -71,6 +79,11 @@ MIN_PREC = 12.0  # median bits of a CKKS decoding (tests/test_ckks.py)
 CKKS_BATCH = 8  # ciphertext pairs stacked at PN16QP1761
 REPS = 20
 BASELINE = None  # the library of --baseline-passes, when given
+BASELINE_ROW = None  # the library of --baseline-row, when given
+# the port tests' small sets (tests/test_torch_bfv.py, tests/test_torch_ckks.py)
+SMALL_BFV = dict(log_n=8, t=65537, log_qi=(46, 46), log_pi=(47,), log_qi_mul=(60, 60))
+SMALL_CKKS = dict(log_n=8, log_slots=7, scale=float(1 << 32), log_qi=(45, 32, 32, 32),
+                  log_pi=(45,))
 
 KERNELS = {
     "ntt_tile": dict(
@@ -112,18 +125,7 @@ def time_ms(fn, reps: int = REPS) -> float:
     """Median over ``reps`` launches, each between two CUDA events, after a
     warm-up.  Inputs stay warm in L2, as they are for the main path's caller,
     which has just produced them."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return event_ms(fn, reps)
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -135,6 +137,41 @@ def host_ms(fn, reps: int = 5) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_time(fn) -> float | str:
+    """``graph_ms``: the device's time of one call (20 in a CUDA graph); the
+    error's text where the call cannot be captured."""
+    try:
+        return graph_ms(fn, count=REPS)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return f"not measured: {e}"
+
+
+def device_turns(fns) -> list:
+    """``device_time`` of ``fns`` taken in turns (a, b, b, a): the mean of
+    each one's two."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        times[i].append(device_time(fns[i]))
+    return [statistics.mean(t) if all(isinstance(v, float) for v in t) else t[0] for t in times]
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The host's time to issue one call, in microseconds: ``calls`` calls
+    back to back on an idle device (fewer than its launch queue holds),
+    then one synchronize outside the clock; median of 5."""
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -213,16 +250,13 @@ def bound_ms(name: str, ring, batch_rows: int, limbs) -> tuple[float, str]:
     """The least time the GPU could take: each input (data and the tables of
     the limbs used) read once, each output written once, over the memory
     rate; for the four-step kernel also its int8 operations over the int8
-    tensor-core peak; for the long-row kernel also its (N/2) log N Shoup
-    butterflies per row, MULS_PER_BUTTERFLY int32 multiplies each, over the
-    int32 multiply rate."""
+    tensor-core peak; for the row and long-row kernels also their (N/2) log N
+    Shoup butterflies per row, MULS_PER_BUTTERFLY int32 multiplies each,
+    over the int32 multiply rate."""
     n, L = ring.n, len(limbs)
     nl = len(set(limbs))
     data = 2 * batch_rows * L * n * 8
-    if name == "ntt_tile":
-        tables = nl * (2 * n * 8 + 4 * 8)
-        return (data + tables) / HBM_BYTES_PER_S * 1e3, "bytes"
-    if name == "ntt_passes":
+    if name in ("ntt_tile", "ntt_passes"):
         t_bytes = (data + nl * 2 * n * 8) / HBM_BYTES_PER_S * 1e3
         muls = batch_rows * L * (n // 2) * ring.log_n * MULS_PER_BUTTERFLY
         t_ops = muls / INT32_MULS_PER_S * 1e3
@@ -264,9 +298,10 @@ def ptxas_report(text: str) -> list[dict]:
     return out
 
 
-def build_baseline(path: str):
-    """An earlier two-launch ``ntt_passes.cu`` built beside the current one."""
-    lib_path = os.path.join(_build.BUILD, "baseline", "libntt_passes_baseline.so")
+def build_baseline(path: str, name: str):
+    """An earlier version of ``csrc/<name>.cu`` built beside the current one,
+    into the git-ignored build directory."""
+    lib_path = os.path.join(_build.BUILD, "baseline", f"lib{name}_baseline.so")
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     proc = subprocess.run(
         [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -275,16 +310,35 @@ def build_baseline(path: str):
     if proc.returncode:
         fail(f"nvcc failed for the baseline {path}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(lib_path)
-    lib.ntt_passes_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.ntt_passes_launch.restype = ctypes.c_int
+    entry = getattr(lib, f"{name}_launch")
+    # the two-launch ntt_passes: rows, L, log N, k, inverse; the first
+    # ntt_row: rows, L, N, inverse; both after 6 pointers, before the stream
+    ints = 5 if name == "ntt_passes" else 4
+    entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    entry.restype = ctypes.c_int
     return lib
+
+
+def baseline_row(ring, x, limbs, inverse) -> torch.Tensor:
+    """The first row kernel's transform: one block a row, plain and Shoup
+    twiddle tables apart."""
+    tw, tws, consts = pallas_ntt._tables(ring, inverse)
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    err = BASELINE_ROW.ntt_row_launch(
+        xc.data_ptr(), out.data_ptr(), tw.data_ptr(), tws.data_ptr(), consts.data_ptr(),
+        ring.limb_vector(limbs).data_ptr(), xc.numel() // ring.n, len(limbs), ring.n,
+        int(inverse), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the baseline row kernel failed to launch: CUDA error {err}")
+    return out
 
 
 def baseline_passes(ring, x, limbs, inverse) -> torch.Tensor:
     """The baseline's transform, at its own default split (chunks of at most
     8192 coefficients, k up to 4)."""
     n = ring.n
-    tw, tws, consts = tile_ntt._tables(ring, inverse)
+    tw, tws, consts = pallas_ntt._tables(ring, inverse)
     xc = x.contiguous()
     out = torch.empty_like(xc)
     err = BASELINE.ntt_passes_launch(
@@ -338,23 +392,32 @@ def measure_shape(name, ring, shape, limbs, inverse, seed) -> dict:
         return w(ring, x, limbs, inverse=inverse)
 
     extra = {}
-    if name == "ntt_passes" and BASELINE is not None:
-        if not torch.equal(baseline_passes(ring, x, limbs, inverse),
+    base = {"ntt_passes": (BASELINE, baseline_passes), "ntt_tile": (BASELINE_ROW, baseline_row)}
+    lib, run_base = base.get(name, (None, None))
+    if lib is not None:
+        if not torch.equal(run_base(ring, x, limbs, inverse),
                            plain_of(name, ring, x, limbs, inverse)):
-            fail(f"the baseline kernel disagrees with the plain version at {shape}")
-        ms, extra["baseline_ms"] = time_turns(
-            [kernel, lambda: baseline_passes(ring, x, limbs, inverse)])
+            fail(f"the baseline {name} disagrees with the plain version at {shape}")
+
+        def baseline():
+            return run_base(ring, x, limbs, inverse)
+
+        ms, extra["baseline_ms"] = time_turns([kernel, baseline])
+        device, extra["baseline_device_ms"] = device_turns([kernel, baseline])
     else:
         ms = time_ms(kernel)
+        device = device_time(kernel)
+    if name == "ntt_tile":
+        extra["host_us"] = host_us(kernel)
     plain = time_ms(lambda: plain_of(name, ring, x, limbs, inverse), reps=5)
     b_ms, b_by = bound_ms(name, ring, rows, limbs)
     return dict(shape=list(shape), limbs=list(limbs), inverse=inverse, max_abs_err=err,
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, **extra)
+                ms=ms, device_ms=device, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
-    """The OTHER kernels' times on a shape the routing gives to ``name``,
-    for each that holds rows of this N."""
+    """The OTHER kernels' times (``ms`` and ``device_ms``) on a shape the
+    routing gives to ``name``, for each that holds rows of this N."""
     x = rand_input(ring, shape[:-2], limbs, 1, seed)
     want = plain_of(name, ring, x, limbs, inverse)
     out = {}
@@ -364,7 +427,11 @@ def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
         w = k["wrapper"]
         if not torch.equal(w(ring, x, limbs, inverse=inverse), want):
             fail(f"{other} disagrees with the plain version on {shape} limbs {limbs}")
-        out[other] = time_ms(lambda: w(ring, x, limbs, inverse=inverse))
+
+        def call():
+            return w(ring, x, limbs, inverse=inverse)
+
+        out[other] = dict(ms=time_ms(call), device_ms=device_time(call))
     return out
 
 
@@ -381,7 +448,7 @@ def measure_calls(calls, label: str) -> list[dict]:
         name = ROUTE_KERNEL[route]
         r = measure_shape(name, ring, shape, limbs, inverse, seed=1000 + i)
         r.update(kernel=name, calls=sum(1 for c in calls if (id(c[0]), *c[1:]) == key),
-                 other_kernel_ms=cross_time(name, ring, shape, limbs, inverse, seed=2000 + i))
+                 other_kernels=cross_time(name, ring, shape, limbs, inverse, seed=2000 + i))
         if r["max_abs_err"] != 0:
             fail(f"{label}: {name} disagrees with its plain version at {shape} limbs {limbs}")
         shapes.append(r)
@@ -389,41 +456,100 @@ def measure_calls(calls, label: str) -> list[dict]:
     return shapes
 
 
+def check_case(results, name, ring, x, limbs, inverse, **tags) -> None:
+    """One kernel-vs-plain case, appended to ``results``."""
+    err = check_equal(name, ring, x, limbs, inverse)
+    results.append(dict(kernel=name, n=ring.n, batch=list(x.shape[:-2]), limbs=list(limbs),
+                        inverse=inverse, err=err, **tags))
+
+
+def row_kernel_cases(results, seed: int) -> tuple[list, int]:
+    """The row kernel at every N it takes (2^8 .. 2^14): 60-, 55-, 45- and
+    39-bit primes and the plaintext ring t = 65537; batches (), 3, 5 and 17,
+    and at N <= 2048 a batch of 88 * 4096 / N + 1, whose 3 limbs have the
+    rows for blocks of 4096 / N rows of one limb, so the last block of a
+    limb is ragged; prefix and non-prefix limbs; random inputs below 4q and
+    every residue at 4q - 1; both directions.  Then its time on the
+    [72, 3, N] grid (and at N <= 2048 on the large batch) beside the other
+    kernels' (and the baseline's, when given).  Returns the timing rows and
+    the next seed."""
+    times = []
+    for log_n in range(8, 15):
+        n = 1 << log_n
+        big = (88 * (4096 // n) + 1,) if n <= 2048 else (17,)
+        for bits in (60, 55, 45, 39):
+            ring = Ring(n, nt.generate_ntt_primes(bits, log_n, 3), device=DEV)
+            for batch in sorted({(), (3,), (5,), (17,), big}):
+                for limbs in ((0, 1, 2), (2, 0), (2,)):
+                    for inverse in (False, True):
+                        seed += 1
+                        x = rand_input(ring, batch, limbs, 4, seed)  # lazy: below 4q
+                        check_case(results, "ntt_tile", ring, x, limbs, inverse, bits=bits)
+            for batch, limbs in (((), (0, 1, 2)), ((17,), (2, 0)), (big, (0, 1, 2))):
+                for inverse in (False, True):
+                    x = const_input(ring, batch, limbs, 4)
+                    check_case(results, "ntt_tile", ring, x, limbs, inverse, bits=bits,
+                               all_4q_minus_1=True)
+            if bits == 60:
+                for shape in sorted({(72, 3, n), (*big, 3, n)}):
+                    for inverse in (False, True):
+                        r = measure_shape("ntt_tile", ring, shape, (0, 1, 2), inverse, seed)
+                        r["plan"] = tile_ntt.launch_plan(n, shape[0] * 3)._asdict()
+                        r["other_kernels"] = cross_time("ntt_tile", ring, shape, (0, 1, 2),
+                                                        inverse, seed)
+                        times.append(r)
+            del ring
+            torch.cuda.empty_cache()
+        # the plaintext ring: t = 65537, one limb (encode / decode)
+        ring = Ring(n, [65537], device=DEV)
+        for batch in ((), (5,)):
+            for inverse in (False, True):
+                seed += 1
+                check_case(results, "ntt_tile", ring, rand_input(ring, batch, (0,), 4, seed),
+                           (0,), inverse, bits=17)
+                check_case(results, "ntt_tile", ring, const_input(ring, batch, (0,), 4),
+                           (0,), inverse, bits=17, all_4q_minus_1=True)
+    # what the row kernel does not hold is refused, not computed wrongly
+    for n in (1 << 7, 1 << 15):
+        ring = Ring(n, nt.generate_ntt_primes(60, n.bit_length() - 1, 1), device=DEV)
+        try:
+            tile_ntt.ntt_tile(ring, ring.new_poly(), (0,))
+            fail(f"ntt_tile accepted N={n}")
+        except NotImplementedError:
+            pass
+    return times, seed
+
+
 def phase_kernels() -> None:
     """Bit-equality (tolerance 0: integers) of each kernel with its plain
     version over a grid of sizes, primes, lazy inputs, limb subsets and
-    batches; and the long-row kernel's time beside the other kernels' (and
-    the baseline's, when given) on the same shapes, with its launch plan
-    for every N."""
+    batches; and the row and long-row kernels' times beside the other
+    kernels' (and the baselines', when given) on the same shapes, with
+    their launch plans for every N."""
     results = []
     seed = 100
-    for log_n in (10, 11, 12, 13, 14, 15):
+    row_times, seed = row_kernel_cases(results, seed)
+    for log_n in (12, 13, 14, 15):
         n = 1 << log_n
         for bits in (60, 39):
             ring = Ring(n, nt.generate_ntt_primes(bits, log_n, 3), device=DEV)
-            for name in ("ntt_tile", "ntt_mxu"):
-                if not takes(name, n):
-                    continue
-                # batch 17 is no multiple of any block of polys; 72 fills
-                # several row tiles of the four-step kernel per limb
-                batches = ((1,), (3,), (17,), (72,)) if name == "ntt_mxu" else ((), (3,), (17,))
-                for batch in batches:
-                    for limbs in ((0, 1, 2), (2, 0), (2,)):
-                        for inverse in (False, True):
-                            seed += 1
-                            x = rand_input(ring, batch, limbs, 4, seed)  # lazy: below 4q
-                            err = check_equal(name, ring, x, limbs, inverse)
-                            results.append(dict(kernel=name, n=n, bits=bits, batch=list(batch),
-                                                limbs=list(limbs), inverse=inverse, err=err))
-                if name == "ntt_mxu":
-                    # the four-step kernel takes any input below 2^62
+            # batch 17 is no multiple of any block of polys; 72 fills
+            # several row tiles of the four-step kernel per limb
+            for batch in ((1,), (3,), (17,), (72,)):
+                for limbs in ((0, 1, 2), (2, 0), (2,)):
                     for inverse in (False, True):
                         seed += 1
-                        rng = np.random.default_rng(seed)
-                        x = u.from_u64(rng.integers(0, 2**62, size=(3, 2, n), dtype=np.uint64), DEV)
-                        err = check_equal(name, ring, x, (2, 0), inverse)
-                        results.append(dict(kernel=name, n=n, bits=bits, batch=[3], limbs=[2, 0],
-                                            inverse=inverse, err=err, below=2**62))
+                        x = rand_input(ring, batch, limbs, 4, seed)  # lazy: below 4q
+                        check_case(results, "ntt_mxu", ring, x, limbs, inverse, bits=bits)
+            # the four-step kernel takes any input below 2^62
+            for inverse in (False, True):
+                seed += 1
+                rng = np.random.default_rng(seed)
+                x = u.from_u64(rng.integers(0, 2**62, size=(3, 2, n), dtype=np.uint64), DEV)
+                check_case(results, "ntt_mxu", ring, x, (2, 0), inverse, bits=bits,
+                           below=2**62)
+            del ring
+            torch.cuda.empty_cache()
     # the long-row kernel from N = 2^12 to 2^16, and its smallest and largest
     # N (clusters of 2, 4 and 8 blocks), every prime size of the default
     # sets, prefix and non-prefix limbs; batch 5 of 3 limbs spreads the rows
@@ -439,49 +565,114 @@ def phase_kernels() -> None:
                     for inverse in (False, True):
                         seed += 1
                         x = rand_input(ring, batch, limbs, 4, seed)
-                        err = check_equal("ntt_passes", ring, x, limbs, inverse)
-                        results.append(dict(kernel="ntt_passes", n=n, bits=bits,
-                                            batch=list(batch), limbs=list(limbs),
-                                            inverse=inverse, err=err))
+                        check_case(results, "ntt_passes", ring, x, limbs, inverse, bits=bits)
             for inverse in (False, True):
                 x = const_input(ring, (3,), (0, 1, 2), 4)
-                err = check_equal("ntt_passes", ring, x, (0, 1, 2), inverse)
-                results.append(dict(kernel="ntt_passes", n=n, bits=bits, batch=[3],
-                                    limbs=[0, 1, 2], inverse=inverse, err=err, all_4q_minus_1=True))
+                check_case(results, "ntt_passes", ring, x, (0, 1, 2), inverse, bits=bits,
+                           all_4q_minus_1=True)
             if bits == 60 and 12 <= log_n:
                 for inverse in (False, True):
                     shape = (72, 3, n)
                     r = measure_shape("ntt_passes", ring, shape, (0, 1, 2), inverse, seed)
-                    r["other_kernel_ms"] = cross_time("ntt_passes", ring, shape, (0, 1, 2),
-                                                      inverse, seed)
+                    r["other_kernels"] = cross_time("ntt_passes", ring, shape, (0, 1, 2),
+                                                    inverse, seed)
                     passes_times.append(r)
             del ring
             torch.cuda.empty_cache()
-    # the plaintext ring: t = 65537, one limb, batch 1 (encode / decode)
-    for log_n in (12, 14):
-        ring = Ring(1 << log_n, [65537], device=DEV)
-        for inverse in (False, True):
-            seed += 1
-            x = rand_input(ring, (), (0,), 4, seed)
-            err = check_equal("ntt_tile", ring, x, (0,), inverse)
-            results.append(dict(kernel="ntt_tile", n=ring.n, bits=17, batch=[], limbs=[0],
-                                inverse=inverse, err=err))
-    # what the row kernel does not hold is refused, not computed wrongly
-    big = Ring(1 << 15, nt.generate_ntt_primes(60, 15, 1), device=DEV)
-    try:
-        tile_ntt.ntt_tile(big, big.new_poly(), (0,))
-        fail("ntt_tile accepted N=32768")
-    except NotImplementedError:
-        pass
     bad = [r for r in results if r["err"] != 0]
-    if any(r["max_abs_err"] != 0 for r in passes_times):
-        bad.append("ntt_passes timing shapes")
-    plans = {1 << e: pallas_ntt.launch_plan(1 << e)._asdict() for e in range(10, 18)}
+    if any(r["max_abs_err"] != 0 for r in row_times + passes_times):
+        bad.append("timing shapes")
     emit("kernels", cases=len(results), ok=not bad, failed=bad[:10],
          cases_by_kernel={k: sum(r["kernel"] == k for r in results) for k in KERNELS},
-         passes_plans=plans, passes_times=passes_times)
+         row_plans={1 << e: {"72x3": tile_ntt.launch_plan(1 << e, 216)._asdict(),
+                             "full": tile_ntt.launch_plan(1 << e)._asdict()} for e in range(8, 15)},
+         passes_plans={1 << e: pallas_ntt.launch_plan(1 << e)._asdict() for e in range(10, 18)},
+         row_times=row_times, passes_times=passes_times)
     if bad:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
+
+
+def phase_small() -> dict:
+    """The port tests' log N = 8 sets on the card, every object made with
+    ``device="cuda"`` (no index): BFV encode, encrypt, ``mul``,
+    ``relinearize``, decrypt, decode, exact; CKKS ``mul_relin``,
+    ``rescale``, ``rotate_columns(1)``, decrypt, decode, at a median of at
+    least MIN_PREC bits; both equal bit for bit to the all-plain route, and
+    the row kernel's launches counted."""
+    dev = "cuda"
+    out = {}
+    params = bfv.Parameters(**SMALL_BFV).gen_from_log_moduli()
+    kgen = bfv.KeyGenerator(params, device=dev)
+    sk, pk = kgen.gen_key_pair()
+    rlk = kgen.gen_relin_key(sk, 1)
+    enc = bfv.Encoder(params, device=dev)
+    ev = bfv.Evaluator(params, device=dev)
+    encryptor = bfv.Encryptor(params, pk=pk, device=dev)
+    rng = np.random.default_rng(8)
+    ma, mb = (rng.integers(0, params.t, params.n, dtype=np.uint64) for _ in range(2))
+    ca, cb = encryptor.encrypt(enc.encode_uint(ma)), encryptor.encrypt(enc.encode_uint(mb))
+    if ca.value[0].device != DEV:
+        fail(f"small: a ciphertext made with device='cuda' lies on {ca.value[0].device}")
+    reset_counts()
+    ct = ev.relinearize(ev.mul(ca, cb), rlk)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = enc.decode_uint(bfv.Decryptor(params, sk, device=dev).decrypt(ct))
+    if not (got == ma * mb % np.uint64(params.t)).all():
+        fail("small: the BFV product does not decrypt to ma * mb mod t")
+    ring_mod.FORCE_KERNEL = "plain"
+    try:
+        ref = ev.relinearize(ev.mul(ca, cb), rlk)
+    finally:
+        ring_mod.FORCE_KERNEL = None
+    if not all(torch.equal(a, b) for a, b in zip(ct.value, ref.value)):
+        fail("small: the BFV product differs from the all-plain route")
+    out["bfv"] = dict(n=params.n, counts=counts)
+
+    params = ckks.Parameters(**SMALL_CKKS).gen_from_log_moduli()
+    kgen = ckks.KeyGenerator(params, device=dev, seed=1)
+    sk, pk = kgen.gen_key_pair()
+    rlk = kgen.gen_relin_key(sk)
+    rot = ckks.RotationKeys()
+    kgen.gen_rot("left", sk, 1, rot)
+    enc = ckks.Encoder(params, device=dev)
+    ev = ckks.Evaluator(params, device=dev)
+    encryptor = ckks.Encryptor(params, pk=pk, device=dev, seed=2)
+    va, vb = (rng.uniform(-1, 1, params.slots) + 1j * rng.uniform(-1, 1, params.slots)
+              for _ in range(2))
+    ca, cb = encryptor.encrypt(enc.encode(va)), encryptor.encrypt(enc.encode(vb))
+
+    def path():
+        prod = ev.rescale(ev.mul_relin(ca, cb, rlk))
+        return prod, ev.rotate_columns(prod, 1, rot)
+
+    reset_counts()
+    prod, turned = path()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dec = ckks.Decryptor(params, sk, device=dev)
+    precision = {}
+    for name, ct, want in (("rescale", prod, va * vb), ("rotate", turned, np.roll(va * vb, -1))):
+        got = enc.decode(dec.decrypt(ct))
+        if got.shape != (params.slots,) or not np.isfinite(got).all():
+            fail(f"small: CKKS {name} decodes to {got.shape} with non-finite values")
+        precision[name] = median_bits(got, want)
+        if precision[name] < MIN_PREC:
+            fail(f"small: CKKS {name} has median precision {precision[name]:.2f} < {MIN_PREC}")
+    ring_mod.FORCE_KERNEL = "plain"
+    try:
+        refs = path()
+    finally:
+        ring_mod.FORCE_KERNEL = None
+    for ct, ref in zip((prod, turned), refs):
+        if ref.scale != ct.scale or not all(torch.equal(a, b) for a, b in zip(ct.value, ref.value)):
+            fail("small: the CKKS path differs from the all-plain route")
+    out["ckks"] = dict(n=params.n, counts=counts, precision_bits=precision)
+    for scheme in ("bfv", "ckks"):
+        c = out[scheme]["counts"]
+        if c["ntt_tile_fwd"] + c["ntt_tile_inv"] == 0:
+            fail(f"small: the {scheme} path never launched the row kernel")
+    return out
 
 
 def drive(params_idx: int, batch: tuple, label: str) -> dict:
@@ -647,19 +838,21 @@ def kernel_rows(res: dict, names) -> list[dict]:
                 launches=res["counts"][name + tag], max_abs_err=max(m["max_abs_err"] for m in mine),
                 ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                 library_ms=None, path=res["label"], shape=s["shape"], limbs=s["limbs"],
-                other_kernel_ms=s["other_kernel_ms"],
-                **({"baseline_ms": s["baseline_ms"]} if "baseline_ms" in s else {}),
+                device_ms=s["device_ms"], other_kernels=s["other_kernels"],
+                **{k: s[k] for k in ("baseline_ms", "baseline_device_ms", "host_us") if k in s},
             ))
     return out
 
 
 def main() -> None:
-    global BASELINE
+    global BASELINE, BASELINE_ROW
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,main_path,full_width,ckks,bfv15")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,small,main_path,full_width,ckks,bfv15")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
+    ap.add_argument("--baseline-row", default=None)
     args = ap.parse_args()
     phases = args.phases.split(",")
     torch.cuda.set_device(DEV)
@@ -668,10 +861,15 @@ def main() -> None:
     if "build" in phases:
         phase_build(args.verbose_build)
     if args.baseline_passes:
-        BASELINE = build_baseline(args.baseline_passes)
+        BASELINE = build_baseline(args.baseline_passes, "ntt_passes")
         emit("baseline", source=args.baseline_passes)
+    if args.baseline_row:
+        BASELINE_ROW = build_baseline(args.baseline_row, "ntt_row")
+        emit("baseline", source=args.baseline_row)
     if "kernels" in phases:
         phase_kernels()
+    if "small" in phases:
+        emit("small", **phase_small())
     summary = []
     if "main_path" in phases:
         res = drive(bfv.PN12QP109, (), "PN12QP109")

@@ -89,6 +89,20 @@ def _check(ring, x: torch.Tensor, limbs: tuple[int, ...], k: int) -> None:
         raise ValueError(f"split k={k} does not fit N={n}")
 
 
+def _tables(ring, inverse: bool):
+    """Device tables of the whole ring for one direction: plain and Shoup
+    twiddles [L, N] and the per-limb constants [L, 4]."""
+    cache, key = ring.kernel_cache, ("passes", inverse)
+    if key not in cache:
+        plain, shoup = ring.shoup_twiddles(inverse)
+        cache[key] = (
+            u.from_u64(plain, ring.device),
+            u.from_u64(shoup, ring.device),
+            u.from_u64(tile_ntt.limb_consts(ring), ring.device),
+        )
+    return cache[key]
+
+
 def _fold(a, two_q):
     """a - 2q where a > 2q (2q itself stays, as in the kernels)."""
     return torch.where(u.lt(two_q, a), a - two_q, a)
@@ -104,7 +118,7 @@ def ntt_passes_plain(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: boo
     k = split(n) if k is None else k
     _check(ring, x, limbs, k)
     p, c = 1 << k, n >> k
-    tw, tws, consts = tile_ntt._tables(ring, inverse)
+    tw, tws, consts = _tables(ring, inverse)
     sel = list(limbs)
     w, ws, cs = tw[sel], tws[sel], consts[sel]  # [L, N], [L, N], [L, 4]
     batch, L = x.shape[:-2], len(limbs)
@@ -184,7 +198,7 @@ def _launch_args(ring, x: torch.Tensor, out: torch.Tensor, limbs: tuple[int, ...
     """The C entry's arguments but the stream, with :func:`launch_plan`'s
     cluster, threads and shared memory."""
     plan = launch_plan(ring.n)
-    tw, tws, consts = tile_ntt._tables(ring, inverse)
+    tw, tws, consts = _tables(ring, inverse)
     return (x.data_ptr(), out.data_ptr(), tw.data_ptr(), tws.data_ptr(), consts.data_ptr(),
             ring.limb_vector(limbs).data_ptr(), x.numel() // ring.n, len(limbs), ring.log_n,
             plan.k, plan.threads, plan.smem_bytes, int(inverse))

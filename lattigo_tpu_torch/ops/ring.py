@@ -160,7 +160,10 @@ class Ring:
     def _route(self, x: torch.Tensor) -> str:
         """Which implementation serves a transform of ``x``.
 
-        Up to N = 16384 the routing is the JAX package's
+        Below N = 256 (``tile_ntt.MIN_N``) every transform takes the plain
+        schedule (``"plain"``), on any device, as the JAX package sends every
+        N < 4096 to its ``_ntt_simple`` (``lattigo_tpu/ops/ring.py:181``,
+        ``:237``).  From N = 256 to 16384 the routing is the JAX package's
         (``lattigo_tpu/ops/ring.py:207-237``): stacked calls (batch >= 2) at
         a supported N go to the int8 four-step kernel, everything else,
         N < 4096 included, to the row kernel.  Every transform the row kernel
@@ -168,12 +171,15 @@ class Ring:
         to the long-row (cluster) kernel: N = 65536 at any batch, N = 32768
         at batch 1.  This departs from the JAX package, which sends N = 65536 at batch
         < 64 to its row kernel because a TPU holds a 512 KB row in VMEM; no
-        H100 block holds one (227 KB of shared memory at most).  Every
-        wrapper takes its plain version for a CPU tensor."""
+        H100 block holds one (227 KB of shared memory at most).
+        ``FORCE_KERNEL`` overrides all of this.  Every wrapper takes its
+        plain version for a CPU tensor."""
         from lattigo_tpu_torch.ops import mxu_ntt, tile_ntt
 
         if FORCE_KERNEL is not None:
             return FORCE_KERNEL
+        if self.n < tile_ntt.MIN_N:
+            return "plain"
         if (self.n >= 4096 and mxu_ntt.supported(self.n)
                 and self._batch_of(x) >= _MXU_MIN_BATCH):
             return "mxu"
