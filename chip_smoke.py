@@ -15,11 +15,17 @@ rings made with ``device="cuda"``; the CKKS path (keygen with a sparse secret, e
 multiply + relinearize + rescale, rotate by one slot, conjugate, decrypt,
 decode) at PN16QP1761 with 8 stacked ciphertext pairs; and one BFV multiply
 at PN15QP880, whose single-poly transforms at N = 32768 only the long-row
-(cluster) kernel holds.  Every phase prints one JSON line; any failure exits
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+(cluster) kernel holds; the 3-party private information retrieval over
+threshold BFV of examples/dbfv_pir.py at PN13QP218 with 8 rows (collective
+public, relinearization and rotation keys, encryption, the batched cloud
+step, collective key switch, decryption), with the other three threshold
+protocols (public-key switch, two-round relinearization key, refresh); and
+BFV rotations (by 1 and 5 slots, the row swap, ``inner_sum``) at PN14QP438
+with 16 stacked ciphertexts.  Every phase prints one JSON line; any failure
+exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
-full_width, ckks, bfv15, and ``profile``, which is not in the default run:
+full_width, ckks, bfv15, dbfv, rotate, and ``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
 device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
 ptxas' registers and spills of every kernel to the ``build`` line;
@@ -55,9 +61,9 @@ if not torch.cuda.is_available():
 
 import numpy as np
 
-from lattigo_tpu_torch import _build
-from lattigo_tpu_torch.entry import entry, entry_ckks
-from lattigo_tpu_torch.models import bfv, ckks
+from lattigo_tpu_torch import _build, native
+from lattigo_tpu_torch.entry import entry, entry_ckks, entry_dbfv_pir, fold
+from lattigo_tpu_torch.models import bfv, ckks, dbfv
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
@@ -140,11 +146,11 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_time(fn) -> float | str:
-    """``graph_ms``: the device's time of one call (20 in a CUDA graph); the
-    error's text where the call cannot be captured."""
+def device_time(fn, count: int = REPS) -> float | str:
+    """``graph_ms``: the device's time of one call (``count`` in a CUDA
+    graph); the error's text where the call cannot be captured."""
     try:
-        return graph_ms(fn, count=REPS)
+        return graph_ms(fn, count=count)
     except RuntimeError as e:
         torch.cuda.synchronize()
         return f"not measured: {e}"
@@ -794,6 +800,193 @@ def phase_ckks() -> dict:
                 shapes=measure_calls(calls, label))
 
 
+def _sum_counts(counts: dict) -> dict:
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _same(a, b) -> bool:
+    return len(a.value) == len(b.value) and all(torch.equal(x, y) for x, y in zip(a.value, b.value))
+
+
+HEAVY_GRAPH_CALLS = 2  # calls of a whole scheme step captured in one graph
+
+
+def phase_dbfv() -> dict:
+    """The 3-party PIR of examples/dbfv_pir.py at PN13QP218 with 8 rows,
+    stage by stage through ``entry_dbfv_pir``: each stage's seconds and
+    kernel launches; the cloud step timed (``ms``, ``device_ms``) and held
+    against the all-plain route bit for bit; the retrieved row must equal
+    the wanted row exactly.  Then the other three protocols at the same set,
+    each checked by exact decryption: PCKS to a fresh public key, the
+    two-round relinearization key (one product relinearized), and a refresh
+    of one ciphertext.  Every kernel is held against its plain version at
+    every shape any of these stages gives it."""
+    label = "PN13QP218"
+    pir = entry_dbfv_pir(device=DEV)
+    params = pir.params
+    setup_s, counts, calls = {}, {}, []
+
+    def stage(name, fn):
+        reset_counts()
+        out = []
+        t0 = time.time()
+        calls.extend(record_calls(lambda: out.append(fn())))
+        setup_s[name] = time.time() - t0
+        counts[name] = read_counts()
+        return out[0]
+
+    pk = stage("ckg", pir.ckg)
+    rlk = stage("rkg", pir.rkg)
+    rot_keys = stage("rtg", pir.rtg)
+    query, rows, masks = stage("encrypt", lambda: pir.encrypt(pk))
+
+    def cloud():
+        return pir.cloud(query, rows, masks, rlk, rot_keys)
+
+    t0 = time.time()
+    cloud()  # also builds the tables
+    torch.cuda.synchronize()
+    first_cloud_s = time.time() - t0
+    result = stage("cloud", cloud)
+    if result.degree != 1 or result.value[0].shape != (len(params.qi), params.n):
+        fail(f"dbfv: the cloud step gave degree {result.degree}, shape {result.value[0].shape}")
+    sk_req = stage("requester_key", pir.requester_key)
+    switched = stage("cks", lambda: pir.cks(result, sk_req))
+    got = stage("decrypt", lambda: pir.decrypt(switched, sk_req))
+    if got.shape != (params.n,) or not (got == pir.rows[pir.wanted]).all():
+        fail(f"dbfv: the retrieved row differs from row {pir.wanted}")
+
+    ring_mod.FORCE_KERNEL = "plain"
+    try:
+        ref = cloud()
+    finally:
+        ring_mod.FORCE_KERNEL = None
+    if not _same(result, ref):
+        fail("dbfv: the cloud step differs from the all-plain route")
+    cloud_ms = time_ms(cloud, reps=5)
+    cloud_device_ms = device_time(cloud, count=HEAVY_GRAPH_CALLS)
+    cks_ms = time_ms(lambda: pir.cks(result, sk_req), reps=5)
+
+    # the other three protocols at the same set, under the summed key
+    dec = bfv.Decryptor(params, pir.sk_col, device=DEV)
+    encryptor = bfv.Encryptor(params, pk=pk, device=DEV, seed=7)
+    rng = np.random.default_rng(13)
+    msg = lambda: rng.integers(0, params.t, params.n, dtype=np.uint64)
+    decode = lambda ct, sk=None: pir.enc.decode_uint(
+        (dec if sk is None else bfv.Decryptor(params, sk, device=DEV)).decrypt(ct))
+    sks = [sk.sk for sk in pir.sks]
+    checks = {}
+
+    def pcks():
+        sk_t, pk_t = bfv.KeyGenerator(params, device=DEV, seed=888).gen_key_pair()
+        m = msg()
+        ct = encryptor.encrypt(pir.enc.encode_uint(m))
+        proto = dbfv.PCKSProtocol(params, device=DEV)
+        out = proto.key_switch(fold(proto, [proto.gen_share(sk, pk_t, ct) for sk in sks]), ct)
+        return bool((decode(out, sk_t) == m).all())
+
+    def rkg_naive():
+        proto = dbfv.RKGProtocolNaive(params, device=DEV)
+        r1 = fold(proto, [proto.gen_share_round_one(sk, pk) for sk in sks])
+        r2 = fold(proto, [proto.gen_share_round_two(r1, sk, pk) for sk in sks])
+        naive_rlk = proto.gen_relinearization_key(r2)
+        m0, m1 = msg(), msg()
+        cts = [encryptor.encrypt(pir.enc.encode_uint(m)) for m in (m0, m1)]
+        prod = pir.ev.relinearize(pir.ev.mul(*cts), naive_rlk)
+        return prod.degree == 1 and bool((decode(prod) == m0 * m1 % np.uint64(params.t)).all())
+
+    def refresh():
+        m = msg()
+        ct = encryptor.encrypt(pir.enc.encode_uint(m))
+        proto = dbfv.RefreshProtocol(params, device=DEV)
+        crs = pir.crp_gen.clock_poly()
+        out = proto.finalize(ct, crs, fold(proto, [proto.gen_share(sk, ct, crs) for sk in sks]))
+        return bool((decode(out) == m).all())
+
+    for name, fn in (("pcks", pcks), ("rkg_naive", rkg_naive), ("refresh", refresh)):
+        checks[name] = stage(name, fn)
+        if not checks[name]:
+            fail(f"dbfv: {name} does not decrypt exactly")
+
+    pir_counts = _sum_counts({k: v for k, v in counts.items() if k not in checks})
+    total = _sum_counts(counts)
+    for name in ("ntt_tile", "ntt_mxu"):
+        if total[name + "_fwd"] + total[name + "_inv"] == 0:
+            fail(f"dbfv: the path never launched {name}")
+    return dict(label=label, n=params.n, parties=pir.n_parties, rows=pir.n_rows,
+                crp_walk=native.walk_route(), setup_s=setup_s, first_cloud_s=first_cloud_s,
+                ms=cloud_ms, device_ms=cloud_device_ms, cks_ms=cks_ms,
+                stage_counts=counts, pir_counts=pir_counts, counts=total, exact=checks,
+                shapes=measure_calls(calls, label))
+
+
+def phase_rotate(batch: int) -> dict:
+    """BFV rotations at PN14QP438 with ``batch`` stacked ciphertexts:
+    power-of-two rotation keys, then ``rotate_columns`` by 1 (direct key)
+    and by 5 (keys 4 and 1), ``rotate_rows`` and ``inner_sum``, each timed
+    (``ms``, ``device_ms``), checked exactly against the rotated slots (the
+    slot sum mod t for ``inner_sum``) and bit for bit against the all-plain
+    route, and every kernel held against its plain version at every shape
+    the key generation and the rotations give it."""
+    label = "PN14QP438"
+    params = bfv.default_params(bfv.PN14QP438)
+    n, row, t = params.n, params.n // 2, params.t
+    kgen = bfv.KeyGenerator(params, device=DEV, seed=21)
+    sk = kgen.gen_secret_key()
+    reset_counts()
+    t0 = time.time()
+    keys = []
+    calls = record_calls(lambda: keys.append(kgen.gen_rotation_keys_pow2(sk)))
+    rk = keys[0]
+    keygen_s, keygen_counts = time.time() - t0, read_counts()
+    enc = bfv.Encoder(params, device=DEV)
+    ev = bfv.Evaluator(params, device=DEV)
+    encryptor = bfv.Encryptor(params, sk=sk, device=DEV, seed=22)
+    msgs = np.random.default_rng(23).integers(0, t, (batch, n), dtype=np.uint64)
+    cts = [encryptor.encrypt(enc.encode_uint(m)) for m in msgs]
+    ct = bfv.Ciphertext([torch.stack([c.value[k] for c in cts]) for k in range(2)])
+    dec = bfv.Decryptor(params, sk, device=DEV)
+    turned = lambda k: np.concatenate([np.roll(msgs[:, :row], -k, 1), np.roll(msgs[:, row:], -k, 1)], 1)
+    total = (msgs.astype(object).sum(axis=1) % t).astype(np.uint64)
+    ops = {
+        "rotate_columns_1": (lambda: ev.rotate_columns(ct, 1, rk), turned(1)),
+        "rotate_columns_5": (lambda: ev.rotate_columns(ct, 5, rk), turned(5)),
+        "rotate_rows": (lambda: ev.rotate_rows(ct, rk),
+                        np.concatenate([msgs[:, row:], msgs[:, :row]], 1)),
+        "inner_sum": (lambda: ev.inner_sum(ct, rk), np.repeat(total[:, None], n, 1)),
+    }
+    out = {}
+    for name, (fn, want) in ops.items():
+        reset_counts()
+        done = []
+        calls += record_calls(lambda: done.append(fn()))
+        res, counts = done[0], read_counts()
+        got = enc.decode_uint(dec.decrypt(res))
+        if got.shape != (batch, n) or not (got == want).all():
+            fail(f"rotate: {name} does not decrypt to the expected slots")
+        ring_mod.FORCE_KERNEL = "plain"
+        try:
+            ref = fn()
+        finally:
+            ring_mod.FORCE_KERNEL = None
+        if not _same(res, ref):
+            fail(f"rotate: {name} differs from the all-plain route")
+        del res, ref
+        out[name] = dict(counts=counts, ms=time_ms(fn, reps=5),
+                         device_ms=device_time(fn, count=HEAVY_GRAPH_CALLS))
+        torch.cuda.empty_cache()
+    counts = _sum_counts({k: v["counts"] for k, v in out.items()})
+    if counts["ntt_mxu_fwd"] + counts["ntt_mxu_inv"] == 0:
+        fail("rotate: the rotations never launched the four-step kernel")
+    return dict(label=label, n=n, batch=[batch], keygen_s=keygen_s, keygen_counts=keygen_counts,
+                rotation_keys=dict(left=sorted(rk.left), right=sorted(rk.right), row=rk.row is not None),
+                ops=out, counts=counts, shapes=measure_calls(calls, label + " rotate"))
+
+
 def phase_profile(make, label: str) -> None:
     """One ``forward`` under torch.profiler: wall time, the device's busy
     time (sum of kernel self times), its idle share, and the kernels that
@@ -848,7 +1041,8 @@ def main() -> None:
     global BASELINE, BASELINE_ROW
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,small,main_path,full_width,ckks,bfv15")
+                    default="device,build,kernels,small,main_path,full_width,ckks,bfv15,dbfv,"
+                            "rotate")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
@@ -897,6 +1091,16 @@ def main() -> None:
         setup = res["setup_and_first_forward_counts"]
         if passes + setup["ntt_passes_fwd"] + setup["ntt_passes_inv"] == 0:
             fail("PN15QP880: the long-row kernel was never launched")
+    if "dbfv" in phases:
+        res = phase_dbfv()
+        emit("dbfv", **res)
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        torch.cuda.empty_cache()
+    if "rotate" in phases:
+        res = phase_rotate(args.batch)
+        emit("rotate", **res)
+        summary += kernel_rows(res, ("ntt_mxu",))
+        torch.cuda.empty_cache()
     if "profile" in phases:
         phase_profile(lambda: entry(device=DEV), "PN12QP109")
         phase_profile(lambda: entry(device=DEV, params_idx=bfv.PN14QP438, batch=(args.batch,)),

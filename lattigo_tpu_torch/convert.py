@@ -1,8 +1,10 @@
 """Carrying state between numpy and the port: polynomials, ciphertexts and
 keys as ``uint64`` arrays on the host, int64 tensors on the device.  The JAX
 package's objects cross over as the ``uint64`` arrays its ``u64.to_u64``
-gives; nothing here imports it.  BFV and CKKS share the key classes; CKKS
-ciphertexts and plaintexts carry their scale (the level is the limb count)."""
+gives; nothing here imports it.  BFV and CKKS share the key classes but not
+the rotation keys (BFV's have the row swap, CKKS's the conjugation); CKKS
+ciphertexts and plaintexts carry their scale (the level is the limb count).
+Threshold-protocol shares are polys, beta-stacked polys or pairs of them."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from lattigo_tpu_torch.models import ckks
 from lattigo_tpu_torch.models.bfv.elements import Ciphertext
 from lattigo_tpu_torch.models.bfv.keygen import PublicKey, SecretKey, SwitchingKey
+from lattigo_tpu_torch.models.bfv.keygen import RotationKeys as BFVRotationKeys
 from lattigo_tpu_torch.ops import u64 as u
 
 
@@ -88,3 +91,32 @@ def rotation_keys_to_numpy(rk: ckks.RotationKeys) -> tuple[dict, dict, tuple | N
     return ({r: switching_key_to_numpy(k) for r, k in rk.left.items()},
             {r: switching_key_to_numpy(k) for r, k in rk.right.items()},
             None if rk.conjugate is None else switching_key_to_numpy(rk.conjugate))
+
+
+def bfv_rotation_keys_from_numpy(left: dict, right: dict, row, device) -> BFVRotationKeys:
+    """``left`` / ``right``: rotation -> (key0, key1) uint64 planes;
+    ``row``: (key0, key1) or None."""
+    carry = lambda k: switching_key_from_numpy(*k, device)
+    return BFVRotationKeys(
+        {r: carry(k) for r, k in left.items()}, {r: carry(k) for r, k in right.items()},
+        None if row is None else carry(row))
+
+
+def bfv_rotation_keys_to_numpy(rk: BFVRotationKeys) -> tuple[dict, dict, tuple | None]:
+    return ({r: switching_key_to_numpy(k) for r, k in rk.left.items()},
+            {r: switching_key_to_numpy(k) for r, k in rk.right.items()},
+            None if rk.row is None else switching_key_to_numpy(rk.row))
+
+
+def share_from_numpy(share, device):
+    """A protocol share: one uint64 array (a poly [L, N] or a beta-stacked
+    [beta, L, N]) or a pair of them."""
+    if isinstance(share, (tuple, list)):
+        return tuple(share_from_numpy(s, device) for s in share)
+    return poly_from_numpy(share, device)
+
+
+def share_to_numpy(share):
+    if isinstance(share, (tuple, list)):
+        return tuple(share_to_numpy(s) for s in share)
+    return poly_to_numpy(share)

@@ -1,14 +1,17 @@
 """The port's main paths: a BFV encrypted multiply + relinearization (the
-reference's hottest path, bfv/evaluator.go:278-464 + :736-813), and a CKKS
+reference's hottest path, bfv/evaluator.go:278-464 + :736-813), a CKKS
 multiply + relinearize + rescale at the reference's largest set
-(ckks/evaluator.go:1016-1133 + :901-995)."""
+(ckks/evaluator.go:1016-1133 + :901-995), and the N-party private
+information retrieval over threshold BFV of examples/dbfv_pir.py
+(examples/dbfv/pir/pir.go)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from lattigo_tpu_torch.models import bfv, ckks
+from lattigo_tpu_torch.models import bfv, ckks, dbfv
+from lattigo_tpu_torch.utils.prng import CRPGenerator
 
 
 def _stack(cts: list, batch: tuple, make):
@@ -95,3 +98,135 @@ def entry_ckks(device=None, params_idx: int = ckks.PN16QP1761, batch=()):
     forward.values = values
     forward.evaluator = ev
     return forward, (ct0, ct1, rlk)
+
+
+def fold(proto, shares):
+    """The parties' shares aggregated in turn by ``proto.aggregate``."""
+    acc = shares[0]
+    for s in shares[1:]:
+        acc = proto.aggregate(acc, s)
+    return acc
+
+
+class DbfvPir:
+    """The stages of the threshold-BFV private information retrieval, the
+    twin of examples/dbfv_pir.py:53-213.  Each method is one stage;
+    :meth:`run` drives them in order:
+
+    ``ckg`` (collective public key) -> ``rkg`` (relinearization key, 3
+    rounds) -> ``rtg`` (left power-of-two rotations and the row swap) ->
+    ``encrypt`` (the database rows and a one-hot query under the collective
+    key) -> ``cloud`` (select, ``inner_sum``, multiply with the rows, sum
+    over the rows, relinearize; one batched pass over ``[n_rows, L, N]``
+    stacks) -> ``cks`` (collective key switch to the requester's key) ->
+    ``decrypt``."""
+
+    wanted = 2  # the row the requester retrieves
+
+    def __init__(self, params, device, n_parties: int, n_rows: int):
+        if n_rows & (n_rows - 1) or n_rows <= self.wanted:
+            raise ValueError("n_rows must be a power of two above the wanted row")
+        self.params = params
+        self.ctx = ctx = bfv.get_context(params, device)
+        self.device = device = ctx.device
+        self.n_parties, self.n_rows = n_parties, n_rows
+        self.sks = [bfv.KeyGenerator(params, device=device, seed=i).gen_secret_key()
+                    for i in range(n_parties)]
+        sk_col = self.sks[0].sk
+        for s in self.sks[1:]:
+            sk_col = ctx.ring_qp.add(sk_col, s.sk)
+        self.sk_col = bfv.SecretKey(sk_col)  # only for checks: no party holds it
+        self.crp_gen = CRPGenerator(b"pir", ctx.ring_qp)
+        self.crp_gen.seed(b"common-seed")
+        self.enc = bfv.Encoder(params, device=device)
+        self.ev = bfv.Evaluator(params, device=device)
+        rng = np.random.default_rng(0)
+        self.rows = [rng.integers(0, 256, params.n, dtype=np.uint64) for _ in range(n_rows)]
+
+    def ckg(self) -> bfv.PublicKey:
+        ckg = dbfv.CKGProtocol(self.params, device=self.device)
+        crp = self.crp_gen.clock_poly()
+        return ckg.gen_public_key(fold(ckg, [ckg.gen_share(sk.sk, crp) for sk in self.sks]), crp)
+
+    def rkg(self) -> bfv.EvaluationKey:
+        rkg = dbfv.RKGProtocol(self.params, device=self.device)
+        crp = self.crp_gen.clock_polys(self.params.beta)
+        sks = [sk.sk for sk in self.sks]
+        ephs = [rkg.new_ephemeral_key() for _ in sks]
+        r1 = fold(rkg, [rkg.gen_share_round_one(e, s, crp) for e, s in zip(ephs, sks)])
+        r2 = fold(rkg, [rkg.gen_share_round_two(r1, s, crp) for s in sks])
+        r3 = fold(rkg, [rkg.gen_share_round_three(r2, e, s) for e, s in zip(ephs, sks)])
+        return rkg.gen_relinearization_key(r2, r3)
+
+    def rtg(self) -> bfv.RotationKeys:
+        rtg = dbfv.RTGProtocol(self.params, device=self.device)
+        rot_keys = bfv.RotationKeys()
+        turns = [("left", 1 << i) for i in range(self.params.log_n - 1)] + [("row", 0)]
+        for rot_type, k in turns:
+            crp = self.crp_gen.clock_polys(self.params.beta)
+            shares = [rtg.gen_share(rot_type, k, sk.sk, crp) for sk in self.sks]
+            rtg.finalize(rot_type, k, fold(rtg, shares), crp, rot_keys)
+        return rot_keys
+
+    def encrypt(self, pk: bfv.PublicKey):
+        """Returns ``(query, rows, masks)``: the one-hot query's ciphertext,
+        the rows' ciphertexts stacked on a leading axis, and the one-hot
+        masks' plaintexts stacked likewise."""
+        n = self.params.n
+        encryptor = bfv.Encryptor(self.params, pk=pk, device=self.device)
+        one_hot = lambda i: np.eye(1, n, i, dtype=np.uint64)[0]
+        cts = [encryptor.encrypt(self.enc.encode_uint(r)) for r in self.rows]
+        query = encryptor.encrypt(self.enc.encode_uint(one_hot(self.wanted)))
+        rows = bfv.Ciphertext([torch.stack([ct.value[k] for ct in cts]) for k in range(2)])
+        masks = torch.stack([self.enc.encode_uint(one_hot(r)).value for r in range(self.n_rows)])
+        return query, rows, masks
+
+    def cloud(self, query: bfv.Ciphertext, rows: bfv.Ciphertext, masks: torch.Tensor,
+              rlk: bfv.EvaluationKey, rot_keys: bfv.RotationKeys) -> bfv.Ciphertext:
+        """sum_r inner_sum(query * mask_r) * row_r, relinearized
+        (examples/dbfv_pir.py:159-178)."""
+        ev, rq = self.ev, self.ctx.ring_q
+        R = masks.shape[0]
+        # the query broadcast over the rows, materialised once
+        q = bfv.Ciphertext([p.expand(R, *p.shape).contiguous() for p in query.value])
+        sel = ev.inner_sum(ev.mul(q, bfv.Plaintext(masks)), rot_keys)
+        vals = ev.mul(sel, rows).value  # degree 2, [R, L, N]
+        while R > 1:  # log-depth tree of modular adds over the rows
+            R //= 2
+            vals = [rq.add(v[:R], v[R:]) for v in vals]
+        return ev.relinearize(bfv.Ciphertext([v[0] for v in vals]), rlk)
+
+    def requester_key(self) -> bfv.SecretKey:
+        return bfv.KeyGenerator(self.params, device=self.device, seed=10_000).gen_secret_key()
+
+    def cks(self, result: bfv.Ciphertext, sk_req: bfv.SecretKey) -> bfv.Ciphertext:
+        """Switches ``result`` from the parties' summed key to ``sk_req``:
+        party 0 targets sk_req, every other party 0 (pir.go:355-370)."""
+        cks = dbfv.CKSProtocol(self.params, device=self.device)
+        zero = torch.zeros_like(sk_req.sk)
+        shares = [cks.gen_share(sk.sk, zero if i else sk_req.sk, result)
+                  for i, sk in enumerate(self.sks)]
+        return cks.key_switch(fold(cks, shares), result)
+
+    def decrypt(self, switched: bfv.Ciphertext, sk_req: bfv.SecretKey) -> np.ndarray:
+        dec = bfv.Decryptor(self.params, sk_req, device=self.device)
+        return self.enc.decode_uint(dec.decrypt(switched))
+
+    def run(self) -> np.ndarray:
+        """Every stage in order; returns the retrieved row."""
+        pk, rlk, rot_keys = self.ckg(), self.rkg(), self.rtg()
+        query, rows, masks = self.encrypt(pk)
+        result = self.cloud(query, rows, masks, rlk, rot_keys)
+        sk_req = self.requester_key()
+        return self.decrypt(self.cks(result, sk_req), sk_req)
+
+
+def entry_dbfv_pir(device=None, params_idx: int | bfv.Parameters = bfv.PN13QP218,
+                   n_parties: int = 3, n_rows: int = 8) -> DbfvPir:
+    """The threshold-BFV PIR at a reference-shipped BFV set (PN13QP218, the
+    example's log N = 13, by default) or at the ``bfv.Parameters`` given as
+    ``params_idx``; returns its stages (:class:`DbfvPir`), the parties'
+    secret keys drawn.  ``run()`` retrieves row ``DbfvPir.wanted``.
+    ``device=None`` means the GPU and raises when there is none."""
+    params = params_idx if isinstance(params_idx, bfv.Parameters) else bfv.default_params(params_idx)
+    return DbfvPir(params, device, n_parties, n_rows)

@@ -1,9 +1,10 @@
 """BFV: exact integer SIMD homomorphic encryption on PyTorch tensors.
 
-The slice ported so far: parameters, context, encoder, key generation
-(secret, public, relinearization and switching keys), encryption,
-decryption, and the evaluator's linear ops, ``mul``, ``relinearize`` and
-``switch_keys``.  Rotations come later.
+Parameters, context, encoder, key generation (secret, sparse secret,
+public, relinearization, switching and rotation keys), encryption (also
+from a common reference polynomial), decryption, and the evaluator's linear
+ops, ``mul``, ``relinearize``, ``switch_keys``, ``rotate_columns``,
+``rotate_rows`` and ``inner_sum``.
 """
 
 from lattigo_tpu_torch.models.bfv.context import BFVContext, get_context
@@ -15,6 +16,7 @@ from lattigo_tpu_torch.models.bfv.keygen import (
     EvaluationKey,
     KeyGenerator,
     PublicKey,
+    RotationKeys,
     SecretKey,
     SwitchingKey,
 )
@@ -30,6 +32,6 @@ from lattigo_tpu_torch.models.bfv.params import (
 __all__ = [
     "BFVContext", "Ciphertext", "Decryptor", "Encoder", "Encryptor",
     "EvaluationKey", "Evaluator", "KeyGenerator", "Parameters", "Plaintext",
-    "PublicKey", "SecretKey", "SwitchingKey", "default_params", "get_context",
+    "PublicKey", "RotationKeys", "SecretKey", "SwitchingKey", "default_params", "get_context",
     "PN12QP109", "PN13QP218", "PN14QP438", "PN15QP880",
 ]

@@ -25,7 +25,14 @@ class Encryptor:
     def encrypt(self, pt: Plaintext, fast: bool = False) -> Ciphertext:
         if self.pk is not None:
             return self._encrypt_pk(pt, fast)
-        return self._encrypt_sk(pt, fast)
+        return self._encrypt_sk(pt, None, fast)
+
+    def encrypt_from_crp(self, pt: Plaintext, crp: torch.Tensor, fast: bool = False) -> Ciphertext:
+        """The sk path with a given uniform polynomial (a common reference
+        polynomial of the threshold protocols) in place of a fresh one."""
+        if self.sk is None:
+            raise ValueError("CRP encryption requires a secret key")
+        return self._encrypt_sk(pt, crp, fast)
 
     def _mod_down(self, x: torch.Tensor) -> torch.Tensor:
         nq = self.ctx.ring_q.L
@@ -47,10 +54,10 @@ class Encryptor:
             c0, c1 = self._mod_down(c0), self._mod_down(c1)
         return Ciphertext([ctx.ring_q.add(c0, pt.value), c1])
 
-    def _encrypt_sk(self, pt: Plaintext, fast: bool) -> Ciphertext:
+    def _encrypt_sk(self, pt: Plaintext, crp: torch.Tensor | None, fast: bool) -> Ciphertext:
         ctx = self.ctx
         ring = ctx.ring_q if fast else ctx.ring_qp
-        a = samplers.uniform_poly(self.gen, ring)
+        a = samplers.uniform_poly(self.gen, ring) if crp is None else crp
         sk = self.sk.sk[: ring.L]
         c0 = ring.intt(ring.neg(ring.mul_coeffs_montgomery(a, sk)))
         a_coeff = ring.intt(a)

@@ -4,8 +4,8 @@ Structure mirrors the reference's call graph (tensorAndRescale for Mul,
 beta-block CRT decomposition for key switching); every inner loop is a
 vectorised pass over whole [L, N] limb stacks, the per-poly and per-block
 transforms are stacked on a leading axis so that each ring runs one batched
-NTT, and all ops broadcast over leading dims of the ciphertext polys.
-Rotations and ``inner_sum`` are not ported yet.
+NTT, and all ops broadcast over leading dims of the ciphertext polys,
+rotations and ``inner_sum`` included.
 """
 
 from __future__ import annotations
@@ -14,12 +14,25 @@ import torch
 
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.models.bfv.elements import Ciphertext, polys_of
+from lattigo_tpu_torch.ops import galois
+
+
+def _hamming(x: int) -> int:
+    return bin(x).count("1")
 
 
 class Evaluator:
     def __init__(self, params, device=None):
         self.ctx = get_context(params, device)
         self.params = self.ctx.params
+        # [beta, n_q, 1]: True on the limbs of decomposition block i, whose
+        # decomposed values equal the input's own (see _decompose_ntt)
+        dec = self.ctx.decomposer
+        mask = torch.zeros((dec.beta, dec.n_q, 1), dtype=torch.bool)
+        for i in range(dec.beta):
+            start = i * dec.alpha
+            mask[i, start : min(start + dec.xalpha[i], dec.n_q)] = True
+        self._block_mask = mask.to(self.ctx.ring_q.device)
 
     # ---- linear ops (bfv/evaluator.go:142-276) ---------------------------
 
@@ -125,11 +138,7 @@ class Evaluator:
         nq_ntt = rq.ntt_limbs(xq, tuple(range(n_q)))
         np_ntt = rqp.ntt_limbs(xp, tuple(range(n_q, n_q + n_p)))
 
-        mask = torch.zeros((dec.beta, n_q), dtype=torch.bool)
-        for i in range(dec.beta):
-            start = i * dec.alpha
-            mask[i, start : min(start + dec.xalpha[i], n_q)] = True
-        mask = mask.reshape(dec.beta, *([1] * (c2_ntt.ndim - 2)), n_q, 1).to(cx.device)
+        mask = self._block_mask.view(dec.beta, *([1] * (c2_ntt.ndim - 2)), n_q, 1)
         return torch.cat([torch.where(mask, c2_ntt, nq_ntt), np_ntt], dim=-2)
 
     def _switch_keys_core(self, cx: torch.Tensor, swk):
@@ -175,3 +184,57 @@ class Evaluator:
         assert ct.degree == 1
         p0, p1 = self._switch_keys_core(ct.value[1], swk)
         return Ciphertext([self.ctx.ring_q.add(ct.value[0], p0), p1])
+
+    # ---- rotations (bfv/evaluator.go:565-733) ----------------------------
+
+    def _permute(self, ct: Ciphertext, gal_el: int, swk) -> Ciphertext:
+        ring = self.ctx.ring_q
+        e0 = galois.permute(ring, ct.value[0], gal_el)
+        e1 = galois.permute(ring, ct.value[1], gal_el)
+        p0, p1 = self._switch_keys_core(e1, swk)
+        return Ciphertext([ring.add(e0, p0), p1])
+
+    def rotate_columns(self, ct: Ciphertext, k: int, rot_keys) -> Ciphertext:
+        """Slots of each row rotated left by ``k``: with the key of ``k``
+        when there is one, else as power-of-two rotations on the side
+        (left by k or right by N/2 - k) of lower Hamming weight."""
+        ctx = self.ctx
+        n = ctx.n
+        k &= (n >> 1) - 1
+        if k == 0:
+            return ct.copy()
+        if k in rot_keys.left:
+            return self._permute(ct, ctx.gal_el_rot_col_left[k], rot_keys.left[k])
+        if _hamming(k) <= _hamming((n >> 1) - k):
+            return self._rotate_pow2(ct, 5, k, rot_keys.left)
+        return self._rotate_pow2(ct, pow(5, 2 * n - 1, 2 * n), (n >> 1) - k, rot_keys.right)
+
+    def _rotate_pow2(self, ct: Ciphertext, gen: int, k: int, keys) -> Ciphertext:
+        mask = (self.ctx.n << 1) - 1
+        out = ct.copy()
+        idx = 1
+        while k > 0:
+            if k & 1:
+                if idx not in keys:
+                    raise ValueError(f"missing pow2 rotation key {idx}")
+                out = self._permute(out, gen, keys[idx])
+            gen = gen * gen & mask
+            idx <<= 1
+            k >>= 1
+        return out
+
+    def rotate_rows(self, ct: Ciphertext, rot_keys) -> Ciphertext:
+        """Swaps the two rows of slots."""
+        if rot_keys.row is None:
+            raise ValueError("row rotation key not generated")
+        return self._permute(ct, self.ctx.gal_el_rot_row, rot_keys.row)
+
+    def inner_sum(self, ct: Ciphertext, rot_keys) -> Ciphertext:
+        """Log-rotations and adds: every slot holds the sum of all slots
+        (bfv/evaluator.go:691-708)."""
+        out = ct.copy()
+        i = 1
+        while i < self.ctx.n >> 1:
+            out = self.add(self.rotate_columns(out, i, rot_keys), out)
+            i <<= 1
+        return self.add(self.rotate_rows(out, rot_keys), out)

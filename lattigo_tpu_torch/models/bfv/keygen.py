@@ -5,7 +5,8 @@ keys follow the reference's implicit-Montgomery convention: the uniform "a"
 polynomials are read as the Montgomery form of the actual CRS, so switching
 keys satisfy  evakey0 = 2^64*(e + P*skIn*1_block - a*skOut)  limb-wise
 (bfv/keygen.go:285-333).  Switching keys are stored stacked as
-[beta, L_QP, N] tensors.  Rotation keys are not ported yet.
+[beta, L_QP, N] tensors.  Rotation keys hold the column rotations to the
+left and right and the row swap (CKKS's have the conjugation instead).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import torch
 
 from lattigo_tpu_torch.models.bfv.context import get_context
-from lattigo_tpu_torch.ops import samplers
+from lattigo_tpu_torch.ops import galois, samplers
 
 
 @dataclasses.dataclass
@@ -39,6 +40,13 @@ class EvaluationKey:
     evakey: list[SwitchingKey]  # one per relinearized degree
 
 
+@dataclasses.dataclass
+class RotationKeys:
+    left: dict[int, SwitchingKey] = dataclasses.field(default_factory=dict)
+    right: dict[int, SwitchingKey] = dataclasses.field(default_factory=dict)
+    row: SwitchingKey | None = None
+
+
 class KeyGenerator:
     """bfv/keygen.go:8-17; every draw comes from one explicit
     ``torch.Generator`` on the context's device, seeded with ``seed``."""
@@ -51,6 +59,11 @@ class KeyGenerator:
     def gen_secret_key(self, p: float = 1.0 / 3.0) -> SecretKey:
         ring = self.ctx.ring_qp
         return SecretKey(ring.ntt(samplers.ternary_poly(self.gen, ring, p=p, montgomery=True)))
+
+    def gen_secret_key_sparse(self, hw: int) -> SecretKey:
+        """``hw`` nonzero +-1 coefficients."""
+        ring = self.ctx.ring_qp
+        return SecretKey(ring.ntt(samplers.ternary_sparse_poly(self.gen, ring, hw, montgomery=True)))
 
     def gen_public_key(self, sk: SecretKey) -> PublicKey:
         """pk = (-(a*s + e), a) in QP, NTT domain (bfv/keygen.go:121-136)."""
@@ -99,3 +112,39 @@ class KeyGenerator:
             k0_planes.append(ring.mul_coeffs_montgomery_and_sub(a, sk_out, e))
             k1_planes.append(a)
         return SwitchingKey(torch.stack(k0_planes), torch.stack(k1_planes))
+
+    def gen_rot(self, rot_type: str, sk: SecretKey, k: int, rot_keys: RotationKeys) -> None:
+        """Adds the key of one rotation ("left" or "right" by k, or the
+        "row" swap) to ``rot_keys`` (bfv/keygen.go:342-369)."""
+        ctx = self.ctx
+        k &= (ctx.n >> 1) - 1
+        if rot_type == "left":
+            if k != 0 and k not in rot_keys.left:
+                rot_keys.left[k] = self._gen_rot_key(sk, ctx.gal_el_rot_col_left[k])
+        elif rot_type == "right":
+            if k != 0 and k not in rot_keys.right:
+                rot_keys.right[k] = self._gen_rot_key(sk, ctx.gal_el_rot_col_right[k])
+        elif rot_type == "row":
+            rot_keys.row = self._gen_rot_key(sk, ctx.gal_el_rot_row)
+        else:
+            raise ValueError(rot_type)
+
+    def gen_rotation_keys_pow2(self, sk: SecretKey) -> RotationKeys:
+        """Every power-of-two rotation to the left and right, and the row
+        swap (bfv/keygen.go:372-388)."""
+        rk = RotationKeys()
+        ctx = self.ctx
+        i = 1
+        while i < ctx.n >> 1:
+            rk.left[i] = self._gen_rot_key(sk, ctx.gal_el_rot_col_left[i])
+            rk.right[i] = self._gen_rot_key(sk, ctx.gal_el_rot_col_right[i])
+            i <<= 1
+        rk.row = self._gen_rot_key(sk, ctx.gal_el_rot_row)
+        return rk
+
+    def _gen_rot_key(self, sk: SecretKey, gal_el: int) -> SwitchingKey:
+        """genrotkey (bfv/keygen.go:429-441): skIn = pi_galois(sk)."""
+        ring = self.ctx.ring_qp
+        permuted = galois.permute_ntt(sk.sk, gal_el)
+        pool = ring.mul_scalar_bigint(permuted, self.ctx.ring_p.modulus_bigint)
+        return self._new_switching_key(pool, sk.sk)

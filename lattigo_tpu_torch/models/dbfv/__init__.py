@@ -1,0 +1,21 @@
+"""dBFV: threshold (multiparty) BFV protocols on PyTorch tensors."""
+
+from lattigo_tpu_torch.models.dbfv.protocols import (
+    CKGProtocol,
+    CKSProtocol,
+    PCKSProtocol,
+    RefreshProtocol,
+    RKGProtocol,
+    RKGProtocolNaive,
+    RTGProtocol,
+)
+
+__all__ = [
+    "CKGProtocol",
+    "CKSProtocol",
+    "PCKSProtocol",
+    "RKGProtocol",
+    "RKGProtocolNaive",
+    "RTGProtocol",
+    "RefreshProtocol",
+]

@@ -66,10 +66,17 @@ class ModUpParams:
 def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None) -> torch.Tensor:
     """Exact base conversion of ``x`` ([..., ls, N], basis src) to
     [..., len(dst_sel), N] in basis dst (ring/ring_basis_extension.go:352-393).
-    ``dst_sel`` selects which destination limbs to produce (default: all)."""
+    ``dst_sel`` selects which destination limbs to produce (default: all).
+    No selection or a ``range`` slices the tables and copies nothing from
+    the host; any other selection gathers them."""
     ls = x.shape[-2]
     assert ls == len(mp.src), (ls, len(mp.src))
-    sel = list(range(len(mp.dst))) if dst_sel is None else list(dst_sel)
+    if dst_sel is None:
+        sel = slice(None)
+    elif isinstance(dst_sel, range) and dst_sel.step == 1:
+        sel = slice(dst_sel.start, dst_sel.stop)
+    else:
+        sel = list(dst_sel)
 
     # y_i = x_i * (Q/q_i)^-1 mod q_i
     y = modred.mred(x, mp.qib_mont_, mp.sq_, mp.sqinv_)
@@ -173,14 +180,20 @@ class Decomposer:
         self.xalpha = [self.alpha] * self.beta
         if self.n_q % self.alpha != 0:
             self.xalpha[-1] = self.n_q % self.alpha
-        self._params: dict[tuple[int, int], ModUpParams] = {}
+        self._params: dict[tuple[int, int, int], ModUpParams] = {}
 
-    def _mod_up_params(self, beta_idx: int, index: int) -> ModUpParams:
-        key = (beta_idx, index)
+    def _mod_up_params(self, level: int, beta_idx: int, index: int) -> ModUpParams:
+        """The conversion of block ``beta_idx``'s ``index + 2`` source limbs
+        to the limbs it produces at ``level``: the Q limbs 0..level outside
+        the block, in order, then the P limbs."""
+        key = (level, beta_idx, index)
         if key not in self._params:
             start = beta_idx * self.alpha
-            src = self.q_moduli[start : start + index + 2]
-            self._params[key] = ModUpParams(src, self.q_moduli + self.p_moduli, self.device)
+            nsrc = index + 2
+            dst = [q for j, q in enumerate(self.q_moduli[: level + 1])
+                   if not start <= j < start + nsrc]
+            self._params[key] = ModUpParams(self.q_moduli[start : start + nsrc],
+                                            dst + self.p_moduli, self.device)
         return self._params[key]
 
     def source_range(self, level: int, beta_idx: int) -> tuple[int, int]:
@@ -213,16 +226,13 @@ class Decomposer:
         else:
             index = (level - 1) % self.alpha
 
-        mp = self._mod_up_params(beta_idx, index)
         nsrc = index + 2
         src = x[..., start : start + nsrc, :]
 
         # destination limbs: Q limbs outside the block + the P block; limbs
         # inside the block are the source residues themselves
-        out_q_idx = [j for j in range(level + 1) if not (start <= j < start + nsrc)]
-        p_idx = [self.n_q + j for j in range(self.n_p)]
-        conv = mod_up(src, mp, dst_sel=out_q_idx + p_idx)
-        n_out_q = len(out_q_idx)
+        conv = mod_up(src, self._mod_up_params(level, beta_idx, index))
+        n_out_q = conv.shape[-2] - self.n_p
         conv_q, x_p = conv[..., :n_out_q, :], conv[..., n_out_q:, :]
 
         # reassemble the Q part in limb order

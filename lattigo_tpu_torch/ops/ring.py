@@ -13,9 +13,13 @@ Counterpart of ``lattigo_tpu/ops/ring.py`` (and of the reference's
   as log2(N) vectorised butterfly stages; they are the plain version and the
   oracle of the CUDA kernels.  ``ntt_limbs`` / ``intt_limbs`` dispatch to
   the kernels (see :func:`Ring._route`).
+* The JAX package's ``Ring.ntt_roll`` is a TPU schedule of the same
+  transform that :meth:`Ring.ntt` computes, and has no twin here.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -33,6 +37,10 @@ FORCE_KERNEL = None
 # rest to the row kernel.  This keeps the JAX package's routing; it is policy,
 # not a measurement on the GPU.
 _MXU_MIN_BATCH = 2
+# entries of a Ring's table cache (scalar columns, rotation twists, index
+# tables); the least recently used one goes first, so that user-chosen
+# scalars cannot grow it without bound
+OP_CACHE_SIZE = 64
 
 
 def _tbl(vals, shape, device) -> torch.Tensor:
@@ -71,6 +79,9 @@ class Ring:
 
         # device tables the NTT kernels build at first use, keyed by them
         self.kernel_cache: dict = {}
+        # per-limb scalar columns, rotation twists and index tables, built at
+        # first use so that repeated calls copy nothing from the host
+        self._op_cache: OrderedDict = OrderedDict()
 
         self.allows_ntt = False
         if compute_ntt_tables:
@@ -330,25 +341,193 @@ class Ring:
         q, _, _, qinv = self._qc(a)
         return modred.cred(q - modred.mred(a, b, q, qinv) + c, q)
 
-    def _scalar_tbl(self, a, fn) -> torch.Tensor:
+    def _cached(self, key, build):
+        """The table under ``key`` in the ring's LRU cache of at most
+        ``OP_CACHE_SIZE`` entries, built by ``build()`` when missing."""
+        cache = self._op_cache
+        if key in cache:
+            cache.move_to_end(key)
+            return cache[key]
+        cache[key] = value = build()
+        if len(cache) > OP_CACHE_SIZE:
+            cache.popitem(last=False)
+        return value
+
+    def _scalar_tbl(self, a, kind: str, scalar: int) -> torch.Tensor:
+        """The ``[lvl+1, 1]`` column of ``scalar`` for ``kind`` (``"mul"``:
+        Montgomery form mod q, ``"add"``: scalar mod q, ``"sub"``: -scalar
+        mod q), cached per (kind, scalar, level)."""
         lvl = self.level_of(a)
-        return _tbl([fn(q) for q in self.moduli[: lvl + 1]], (lvl + 1, 1), a.device)
+        fn = {"mul": lambda q: nt.mform(scalar % q, q), "add": lambda q: scalar % q,
+              "sub": lambda q: (q - scalar % q) % q}[kind]
+        return self._cached((kind, scalar, lvl), lambda: _tbl(
+            [fn(q) for q in self.moduli[: lvl + 1]], (lvl + 1, 1), self.device))
 
     def mul_scalar_bigint(self, a, scalar: int):
         """a * scalar mod q per limb, arbitrary-precision scalar."""
-        mont = self._scalar_tbl(a, lambda q: nt.mform(scalar % q, q))
         q, _, _, qinv = self._qc(a)
-        return modred.mred(a, mont, q, qinv)
+        return modred.mred(a, self._scalar_tbl(a, "mul", scalar), q, qinv)
 
+    # the JAX package's mul_scalar has the same body as mul_scalar_bigint
     mul_scalar = mul_scalar_bigint
 
     def add_scalar_bigint(self, a, scalar: int):
-        c = self._scalar_tbl(a, lambda q: scalar % q)
-        return modred.cred(a + c, self._qc(a)[0])
+        return modred.cred(a + self._scalar_tbl(a, "add", scalar), self._qc(a)[0])
 
     def sub_scalar_bigint(self, a, scalar: int):
-        c = self._scalar_tbl(a, lambda q: (q - scalar % q) % q)
-        return modred.cred(a + c, self._qc(a)[0])
+        return modred.cred(a + self._scalar_tbl(a, "sub", scalar), self._qc(a)[0])
+
+    add_scalar = add_scalar_bigint
+    sub_scalar = sub_scalar_bigint
+
+    # -- remaining coefficient-wise utilities (ring/ring.go:146-801) -------
+
+    def add_nomod(self, a, b):
+        return a + b
+
+    def sub_nomod(self, a, b):
+        """a + q - b, without the conditional reduction (result < a + q)."""
+        return a + self._qc(a)[0] - b
+
+    def mul_coeffs_montgomery_constant(self, a, b):
+        """a .* b * 2^-64 mod q, lazily reduced into [0, 2q)."""
+        q, _, _, qinv = self._qc(a)
+        return modred.mred_constant(a, b, q, qinv)
+
+    def mul_coeffs_montgomery_and_add_nomod(self, a, b, c):
+        q, _, _, qinv = self._qc(a)
+        return modred.mred(a, b, q, qinv) + c
+
+    def mul_coeffs(self, a, b):
+        """Barrett a .* b mod q (no Montgomery precondition)."""
+        q, u0, u1, _ = self._qc(a)
+        return modred.bred(a, b, q, u0, u1)
+
+    def _const(self, m: int) -> torch.Tensor:
+        return self._cached(("const", m), lambda: _tbl([m], (1, 1), self.device))
+
+    def mod_scalar(self, a, m: int):
+        """Each coefficient mod an arbitrary 64-bit m (ring/ring.go:146)."""
+        return modred.bred_add(a, self._const(m), self._const(nt.bred_params(m)[0]))
+
+    def and_scalar(self, a, m: int):
+        return a & self._const(m)
+
+    def or_scalar(self, a, m: int):
+        return a | self._const(m)
+
+    def xor_scalar(self, a, m: int):
+        return a ^ self._const(m)
+
+    def shift(self, a, n_shift: int):
+        """Cyclic left shift of the coefficient slices (ring/ring.go:575)."""
+        return torch.roll(a, -n_shift, dims=-1)
+
+    def mul_by_pow2(self, a, pow2: int):
+        """a * 2^pow2 mod q (ring/ring.go:629)."""
+        return self.mul_scalar(a, 1 << pow2)
+
+    def mult_by_monomial(self, a, degree: int):
+        """a(X) * X^degree in the negacyclic ring (ring/ring.go:663-723)."""
+        n = self.n
+        shift = degree % (n << 1)
+        if shift == 0:
+            return a
+        q = self._qc(a)[0]
+        x = a
+        if shift >= n:
+            x = self.neg(x)
+            shift -= n
+        if shift == 0:
+            return x
+        rolled = torch.roll(x, shift, dims=-1)
+        # wrapped-around coefficients pick up a sign flip; a zero stays zero
+        wrapped = torch.arange(n, device=a.device) < shift
+        neg = torch.where(rolled == 0, rolled, q - rolled)
+        return torch.where(wrapped, neg, rolled)
+
+    def mul_by_vector_montgomery(self, a, vector):
+        """a .* vector (Montgomery per-slot weights) (ring/ring.go:726)."""
+        vec = u.from_u64(np.asarray(vector, dtype=np.uint64).reshape(1, -1), a.device)
+        q, _, _, qinv = self._qc(a)
+        return modred.mred(a, vec, q, qinv)
+
+    def bit_reverse(self, a):
+        """Permute coefficients into bit-reversed order (ring/ring.go:749)."""
+        idx = self._cached(("brev",), lambda: torch.from_numpy(np.asarray(
+            nt.bit_reverse_array(np.arange(self.n, dtype=np.int64), self.log_n),
+            dtype=np.int64)).to(self.device))
+        return torch.index_select(a, -1, idx)
+
+    def _rotate_rows(self, lvl: int, n_rot: int) -> np.ndarray:
+        """psi^(2*n_rot) power table for Galois rotation: gal[j] =
+        root^j * 2^64 mod q per limb, built once per (level, rotation) with
+        vectorised square-and-multiply on object arrays."""
+        def build():
+            rows = np.empty((lvl + 1, self.n), dtype=np.uint64)
+            exps = np.arange(self.n, dtype=np.uint64)
+            for i, q in enumerate(self.moduli[: lvl + 1]):
+                psi = nt.inv_mform(self.psi_mont[i], q)
+                rb = pow(psi * psi % q, n_rot, q)
+                acc = np.full(self.n, nt.mform(1, q), dtype=object)
+                for b in range(self.log_n):
+                    sel = (exps >> np.uint64(b)) & np.uint64(1) == 1
+                    if sel.any():
+                        acc[sel] = acc[sel] * rb % q
+                    rb = rb * rb % q
+                rows[i] = acc.astype(np.uint64)
+            return rows
+
+        return self._cached(("rot", lvl, n_rot), build)
+
+    def rotate(self, a, n_rot: int):
+        """Galois rotation in NTT form via psi^2 twisting (ring/ring.go:775);
+        requires bit-reversed-permuted data before the NTT."""
+        lvl = self.level_of(a)
+        twist = self._cached(("rotrows", lvl, n_rot),
+                             lambda: u.from_u64(self._rotate_rows(lvl, n_rot), self.device))
+        q, _, _, qinv = self._qc(a)
+        return modred.mred(a, twist, q, qinv)
+
+    def exp(self, a, e: int):
+        """a(X)^e in the ring by NTT pointwise powering (the reference's Exp
+        at ring/ring.go:441 clobbers its own output with a stray InvNTT;
+        this is the corrected semantic, as in the JAX package)."""
+        x = self.ntt(a)
+        acc = None
+        while e > 0:
+            if e & 1:
+                acc = x if acc is None else self.mul_coeffs(acc, x)
+            x = self.mul_coeffs(x, x)
+            e >>= 1
+        if acc is None:
+            return self.set_coeffs_bigint([1] + [0] * (self.n - 1))
+        return self.intt(acc)
+
+    def mul_poly(self, a, b):
+        """Full negacyclic polynomial product via NTT (ring/ring.go:358)."""
+        return self.intt(self.mul_coeffs_montgomery(self.mform(self.ntt(a)), self.ntt(b)))
+
+    def mul_poly_naive(self, a, b):
+        """Schoolbook negacyclic convolution on the host with Python ints
+        (ring/ring.go:383): the slow exact twin of :meth:`mul_poly`."""
+        n = self.n
+        av, bv = u.to_u64(a), u.to_u64(b)
+        L = av.shape[-2]
+        out = np.zeros((L, n), dtype=np.uint64)
+        for i in range(L):
+            q = self.moduli[i]
+            brow = bv[i].astype(object)
+            acc = np.zeros(2 * n, dtype=object)
+            for j in range(n):
+                aj = int(av[i, j])
+                if aj:
+                    acc[j : j + n] += aj * brow
+            out[i] = ((acc[:n] - acc[n:]) % q).astype(np.uint64)
+        return u.from_u64(out, a.device)
+
+    def equal(self, a, b) -> bool:
+        return bool(torch.equal(self.reduce(a), self.reduce(b)))
 
     # -- host <-> device coefficient conversion ----------------------------
 
