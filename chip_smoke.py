@@ -19,13 +19,23 @@ at PN15QP880, whose single-poly transforms at N = 32768 only the long-row
 threshold BFV of examples/dbfv_pir.py at PN13QP218 with 8 rows (collective
 public, relinearization and rotation keys, encryption, the batched cloud
 step, collective key switch, decryption), with the other three threshold
-protocols (public-key switch, two-round relinearization key, refresh); and
+protocols (public-key switch, two-round relinearization key, refresh);
 BFV rotations (by 1 and 5 slots, the row swap, ``inner_sum``) at PN14QP438
-with 16 stacked ciphertexts.  Every phase prints one JSON line; any failure
-exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+with 16 stacked ciphertexts; and the 3-party encrypted two-layer sigmoid
+network over threshold CKKS at PN14QP438 (collective public,
+relinearization and rotation keys, each party's 8192 slots encrypted, the
+degree-7 Chebyshev sigmoid, a rotation and a square, a collective refresh
+back to the top level, the second sigmoid, a public-key switch to a
+requester, decryption; every share through the reference byte codecs),
+with the rest of dCKKS beside it (collective key switch, two-round
+relinearization key, conjugation, the refresh's device recode against the
+host big-integer one, ``encrypt_from_crp``, ``evaluate_poly_fast`` and
+``evaluate_cheby_fast``, codec bytes of shares made on the card).  Every
+phase prints one JSON line; any failure exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
-full_width, ckks, bfv15, dbfv, rotate, and ``profile``, which is not in the default run:
+full_width, ckks, bfv15, dbfv, rotate, dckks, and ``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
 device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
 ptxas' registers and spills of every kernel to the ``build`` line;
@@ -46,6 +56,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import re
 import statistics
@@ -62,13 +73,14 @@ if not torch.cuda.is_available():
 import numpy as np
 
 from lattigo_tpu_torch import _build, native
-from lattigo_tpu_torch.entry import entry, entry_ckks, entry_dbfv_pir, fold
-from lattigo_tpu_torch.models import bfv, ckks, dbfv
+from lattigo_tpu_torch.entry import entry, entry_ckks, entry_dbfv_pir, entry_dckks_sigmoid, fold
+from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.ops.ring import Ring
 from lattigo_tpu_torch.tools.timing import event_ms, graph_ms
+from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils.precision import precision_stats
 
 DEV = torch.device("cuda", 0)
@@ -82,6 +94,9 @@ INT32_MULS_PER_S = 67e12 / 4
 # the high word of v*w', 3 for that word times q
 MULS_PER_BUTTERFLY = 10
 MIN_PREC = 12.0  # median bits of a CKKS decoding (tests/test_ckks.py)
+# median bits of the dCKKS checks (tests/test_dckks.py, tests/test_ckks.py)
+DCKKS_BITS = dict(path=7.0, cks=11.0, rkg_naive=9.0, conjugate=10.0, refresh=10.0,
+                  encrypt_from_crp=11.0, evaluate_poly_fast=10.0, evaluate_cheby_fast=7.0)
 CKKS_BATCH = 8  # ciphertext pairs stacked at PN16QP1761
 REPS = 20
 BASELINE = None  # the library of --baseline-passes, when given
@@ -987,6 +1002,225 @@ def phase_rotate(batch: int) -> dict:
                 ops=out, counts=counts, shapes=measure_calls(calls, label + " rotate"))
 
 
+def _ct_same(a, b) -> bool:
+    return a.scale == b.scale and _same(a, b)
+
+
+def _on_cpu(share):
+    return tuple(x.cpu() for x in share) if isinstance(share, tuple) else share.cpu()
+
+
+def _shares_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase_dckks() -> dict:
+    """The 3-party encrypted two-layer sigmoid network over threshold CKKS
+    at PN14QP438, stage by stage through ``entry_dckks_sigmoid``: each
+    stage's seconds and kernel launches, the refresh split into its host
+    big-integer masks and its device shares and recode; ``layer1`` and
+    ``layer2`` timed (``ms``, ``device_ms``) and held against the all-plain
+    route bit for bit (scales too); bytes on the wire per protocol; the
+    output at a median of DCKKS_BITS["path"] bits against the sigmoids, and
+    its bits against the two Chebyshev interpolants in float64.  Then, at
+    the same set under the parties' summed key: CKS to a requester's secret
+    key, the two-round relinearization key (one product), conjugation
+    through the collective key, the refresh's device recode equal to the
+    host big-integer one at the refresh's level and at level 0,
+    ``encrypt_from_crp``, ``evaluate_poly_fast`` and ``evaluate_cheby_fast``,
+    each decrypting to its DCKKS_BITS budget; and the codec bytes of shares
+    made on the card equal to those of the same shares moved to the CPU.
+    Every kernel is held against its plain version at every shape any of
+    these gives it."""
+    label = "PN14QP438 dCKKS"
+    net = entry_dckks_sigmoid(device=DEV)
+    params = net.params
+    top, slots = params.max_level, params.slots
+    seconds, counts, calls = {}, {}, []
+
+    def stage(name, fn):
+        reset_counts()
+        out = []
+        t0 = time.time()
+        calls.extend(record_calls(lambda: out.append(fn())))
+        seconds[name] = time.time() - t0
+        counts[name] = read_counts()
+        return out[0]
+
+    pk = stage("ckg", net.ckg)
+    rlk = stage("rkg", net.rkg)
+    rot_keys = stage("rtg", net.rtg)
+    cts = stage("encrypt", lambda: net.encrypt(pk))
+
+    def layer1():
+        return net.layer1(cts, rlk, rot_keys)
+
+    t0 = time.time()
+    layer1()  # also builds the tables
+    torch.cuda.synchronize()
+    first_s = {"layer1": time.time() - t0}
+    hidden = stage("layer1", layer1)
+    if hidden.level != top - 5:
+        fail(f"dckks: layer1 left level {hidden.level}, expected {top - 5}")
+    refresh = dckks.RefreshProtocol(params, device=DEV)
+    masks = stage("refresh_masks", lambda: net.refresh_masks(refresh, hidden.level))
+    fresh = stage("refresh_shares", lambda: net.refresh_finish(refresh, hidden, masks))
+    if fresh.level != top or fresh.scale != hidden.scale:
+        fail(f"dckks: the refresh gave level {fresh.level}, scale {fresh.scale}")
+
+    def layer2():
+        return net.layer2(fresh, rlk)
+
+    t0 = time.time()
+    layer2()
+    torch.cuda.synchronize()
+    first_s["layer2"] = time.time() - t0
+    out = stage("layer2", layer2)
+    sk_req, pk_req = stage("requester_key", net.requester_key)
+    switched = stage("pcks", lambda: net.pcks(out, pk_req))
+    got = stage("decrypt", lambda: net.decrypt(switched, sk_req))
+    if got.shape != (slots,) or not np.isfinite(got).all():
+        fail(f"dckks: the output decodes to {got.shape} with non-finite values")
+    precision = dict(vs_sigmoid=median_bits(got, net.want()),
+                     vs_chebyshev_float64=median_bits(got, net.want(exact=False)))
+    if precision["vs_sigmoid"] < DCKKS_BITS["path"]:
+        fail(f"dckks: median precision {precision['vs_sigmoid']:.2f} < {DCKKS_BITS['path']} bits")
+    path_stages = list(counts)
+
+    ring_mod.FORCE_KERNEL = "plain"
+    try:
+        refs = layer1(), layer2()
+    finally:
+        ring_mod.FORCE_KERNEL = None
+    for name, ct, ref in (("layer1", hidden, refs[0]), ("layer2", out, refs[1])):
+        if not _ct_same(ct, ref):
+            fail(f"dckks: {name} differs from the all-plain route")
+    del refs
+    layers = {name: dict(ms=time_ms(fn, reps=5), device_ms=device_time(fn, count=HEAVY_GRAPH_CALLS))
+              for name, fn in (("layer1", layer1), ("layer2", layer2))}
+    for name, t in layers.items():
+        if not isinstance(t["device_ms"], float):
+            fail(f"dckks: {name} could not be timed on the device: {t['device_ms']}")
+
+    # the rest of dCKKS at the same set, under the parties' summed key
+    enc, ev = net.enc, net.ev
+    dec = ckks.Decryptor(params, net.sk_col, device=DEV)
+    decode = lambda ct, d=dec: enc.decode(d.decrypt(ct))
+    enc_sk = ckks.Encryptor(params, sk=net.sk_col, device=DEV, seed=23)
+    rng = np.random.default_rng(17)
+    values = lambda: rng.uniform(-1, 1, slots) + 1j * rng.uniform(-1, 1, slots)
+    sks = [sk.sk for sk in net.sks]
+    n_q = len(params.qi)
+
+    def cks():
+        sk_t = ckks.KeyGenerator(params, device=DEV, seed=999).gen_secret_key()
+        v = values()
+        ct = enc_sk.encrypt(enc.encode(v))
+        proto = dckks.CKSProtocol(params, device=DEV)
+        zero = torch.zeros_like(sk_t.sk)
+        shares = [proto.gen_share(sk, zero if i else sk_t.sk, ct) for i, sk in enumerate(sks)]
+        res = proto.key_switch(fold(proto, shares), ct)
+        return median_bits(decode(res, ckks.Decryptor(params, sk_t, device=DEV)), v)
+
+    def rkg_naive():
+        proto = dckks.RKGProtocolNaive(params, device=DEV)
+        r1 = fold(proto, [proto.gen_share_round_one(sk, pk) for sk in sks])
+        r2 = fold(proto, [proto.gen_share_round_two(r1, sk, pk) for sk in sks])
+        v0, v1 = values(), values()
+        prod = ev.mul_relin(*[enc_sk.encrypt(enc.encode(v)) for v in (v0, v1)],
+                            proto.gen_relinearization_key(r2))
+        return median_bits(decode(prod), v0 * v1)
+
+    def conjugate():
+        v = values()
+        return median_bits(decode(ev.conjugate(enc_sk.encrypt(enc.encode(v)), rot_keys)), np.conj(v))
+
+    def refresh_recode():
+        """finalize against finalize_bigint, from the refresh's level and from 0."""
+        bits = {}
+        for lvl in (hidden.level, 0):
+            v = values()
+            ct = ev.drop_level(enc_sk.encrypt(enc.encode(v)), top - lvl)
+            proto = dckks.RefreshProtocol(params, device=DEV)
+            crs = net.crp_gen.clock_poly()[:n_q]
+            comb = fold(proto, [proto.gen_shares(sk, net.n_parties, ct, crs) for sk in sks])
+            res = proto.finalize(ct, crs, comb)
+            if res.level != top or not _ct_same(res, proto.finalize_bigint(ct, crs, comb)):
+                fail(f"dckks: the refresh's device recode from level {lvl} differs from the "
+                     "host big-integer one")
+            bits[lvl] = median_bits(decode(res), v)
+        return min(bits.values())
+
+    def encrypt_from_crp():
+        v = values()
+        crp = net.crp_gen.clock_poly()
+        ct = enc_sk.encrypt_from_crp(enc.encode(v), crp)
+        want_c1 = ev.ctx.basis_q_p.mod_down_split_pq(*[ev.ctx.ring_qp.intt(crp)[s] for s in
+                                                      (slice(0, n_q), slice(n_q, None))])
+        if not torch.equal(ct.value[1], ev.ctx.ring_q.ntt(want_c1)):
+            fail("dckks: the c1 of encrypt_from_crp is not the CRP divided by P")
+        return median_bits(decode(ct), v)
+
+    def evaluate_poly_fast():
+        v = rng.uniform(-0.9, 0.9, slots)
+        res = ckks.evaluate_poly_fast(ev, enc_sk.encrypt(enc.encode(v)), [0, 1.0, 0, -1.0 / 6], rlk)
+        return median_bits(decode(res), v - v**3 / 6)
+
+    def evaluate_cheby_fast():
+        v = rng.uniform(-0.95, 0.95, slots)
+        cheby = ckks.approximate(lambda x: complex(math.exp(x.real), 0), -1, 1, 7)
+        res = ckks.evaluate_cheby_fast(ev, enc_sk.encrypt(enc.encode(v)), cheby, rlk)
+        return median_bits(decode(res), np.exp(v))
+
+    checks = {}
+    for name, fn in (("cks", cks), ("rkg_naive", rkg_naive), ("conjugate", conjugate),
+                     ("refresh", refresh_recode), ("encrypt_from_crp", encrypt_from_crp),
+                     ("evaluate_poly_fast", evaluate_poly_fast),
+                     ("evaluate_cheby_fast", evaluate_cheby_fast)):
+        checks[name] = stage(name, fn)
+        if checks[name] < DCKKS_BITS[name]:
+            fail(f"dckks: {name} has median precision {checks[name]:.2f} < {DCKKS_BITS[name]} bits")
+
+    def codecs():
+        """Shares made on the card: their bytes equal those of the same shares
+        moved to the CPU, and come back from bytes on the card unchanged."""
+        crp = net.crp_gen.clock_polys(params.beta())
+        rkg = dckks.RKGProtocol(params, device=DEV)
+        made = {
+            "ckg": (dckks.CKGProtocol(params, device=DEV).gen_share(sks[0], crp[0]),),
+            "rkg_round1": (rkg.gen_share_round_one(rkg.new_ephemeral_key(), sks[0], crp),),
+            "rtg": (1, ser.ROTATION_LEFT, dckks.RTGProtocol(params, device=DEV).gen_share(
+                "left", 1, sks[0], crp)),
+            "pcks": (dckks.PCKSProtocol(params, device=DEV).gen_share(sks[0], pk_req, out),),
+            "refresh": (refresh.gen_shares(sks[0], net.n_parties, hidden, crp[0][:n_q]),),
+        }
+        sizes = {}
+        for codec, args in made.items():
+            to_bytes = getattr(ser, codec + "_share_to_bytes")
+            data = to_bytes(*args)
+            if data != to_bytes(*args[:-1], _on_cpu(args[-1])):
+                fail(f"dckks: the {codec} share's bytes differ between the card and the CPU")
+            back = getattr(ser, codec + "_share_from_bytes")(data, DEV)
+            if not _shares_equal(back[-1] if codec == "rtg" else back, args[-1]):
+                fail(f"dckks: the {codec} share does not come back from its bytes")
+            sizes[codec] = len(data)
+        return sizes
+
+    codec_bytes = stage("codecs", codecs)
+    path_counts = _sum_counts({k: counts[k] for k in path_stages})
+    for name in ("ntt_tile", "ntt_mxu"):
+        if path_counts[name + "_fwd"] + path_counts[name + "_inv"] == 0:
+            fail(f"dckks: the path never launched {name}")
+    return dict(label=label, n=params.n, slots=slots, parties=net.n_parties,
+                crp_walk=native.walk_route(), setup_s=seconds, first_s=first_s,
+                refresh_host_s=seconds["refresh_masks"], refresh_device_s=seconds["refresh_shares"],
+                layers=layers, wire_bytes=net.wire_bytes, precision_bits=precision, checks=checks,
+                codec_bytes=codec_bytes, stage_counts=counts, counts=path_counts,
+                all_counts=_sum_counts(counts), shapes=measure_calls(calls, label))
+
+
 def phase_profile(make, label: str) -> None:
     """One ``forward`` under torch.profiler: wall time, the device's busy
     time (sum of kernel self times), its idle share, and the kernels that
@@ -1042,7 +1276,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,small,main_path,full_width,ckks,bfv15,dbfv,"
-                            "rotate")
+                            "rotate,dckks")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
@@ -1100,6 +1334,11 @@ def main() -> None:
         res = phase_rotate(args.batch)
         emit("rotate", **res)
         summary += kernel_rows(res, ("ntt_mxu",))
+        torch.cuda.empty_cache()
+    if "dckks" in phases:
+        res = phase_dckks()
+        emit("dckks", **res)
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
         torch.cuda.empty_cache()
     if "profile" in phases:
         phase_profile(lambda: entry(device=DEV), "PN12QP109")

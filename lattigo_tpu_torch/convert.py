@@ -4,7 +4,9 @@ package's objects cross over as the ``uint64`` arrays its ``u64.to_u64``
 gives; nothing here imports it.  BFV and CKKS share the key classes but not
 the rotation keys (BFV's have the row swap, CKKS's the conjugation); CKKS
 ciphertexts and plaintexts carry their scale (the level is the limb count).
-Threshold-protocol shares are polys, beta-stacked polys or pairs of them."""
+Threshold-protocol shares are polys, beta-stacked polys or pairs of them
+(a dCKKS refresh pair holds h0 at the ciphertext's level and h1 at the top
+level)."""
 
 from __future__ import annotations
 

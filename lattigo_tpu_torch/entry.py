@@ -1,16 +1,23 @@
 """The port's main paths: a BFV encrypted multiply + relinearization (the
 reference's hottest path, bfv/evaluator.go:278-464 + :736-813), a CKKS
 multiply + relinearize + rescale at the reference's largest set
-(ckks/evaluator.go:1016-1133 + :901-995), and the N-party private
-information retrieval over threshold BFV of examples/dbfv_pir.py
-(examples/dbfv/pir/pir.go)."""
+(ckks/evaluator.go:1016-1133 + :901-995), the N-party private information
+retrieval over threshold BFV of examples/dbfv_pir.py
+(examples/dbfv/pir/pir.go), and an N-party encrypted two-layer sigmoid
+network over threshold CKKS with a collective refresh between the layers
+(examples/ckks_sigmoid.py's Chebyshev sigmoid on tests/test_dckks.py's
+protocol sequence)."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+from numpy.polynomial import chebyshev
 
-from lattigo_tpu_torch.models import bfv, ckks, dbfv
+from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
+from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils.prng import CRPGenerator
 
 
@@ -230,3 +237,172 @@ def entry_dbfv_pir(device=None, params_idx: int | bfv.Parameters = bfv.PN13QP218
     ``device=None`` means the GPU and raises when there is none."""
     params = params_idx if isinstance(params_idx, bfv.Parameters) else bfv.default_params(params_idx)
     return DbfvPir(params, device, n_parties, n_rows)
+
+
+def sigmoid(x) -> float:
+    """The logistic function of a slot's real part (examples/ckks_sigmoid.py)."""
+    return 1 / (math.exp(-x.real) + 1)
+
+
+def cheby_float64(cheby: ckks.ChebyshevInterpolation, x: np.ndarray) -> np.ndarray:
+    """The interpolant ``cheby`` evaluated in float64 at real ``x``."""
+    a, b = cheby.a.real, cheby.b.real
+    coeffs = [cheby.coeffs[i].real for i in range(cheby.degree + 1)]
+    return chebyshev.chebval((2 * x - a - b) / (b - a), coeffs)
+
+
+class DckksSigmoid:
+    """The stages of an N-party encrypted two-layer sigmoid network over
+    threshold CKKS.  Each method is one stage; :meth:`run` drives them in
+    order:
+
+    ``ckg`` (collective public key) -> ``rkg`` (relinearization key, 3
+    rounds) -> ``rtg`` (left rotation by 1, conjugation) -> ``encrypt``
+    (each party's vector under the collective key) -> ``layer1`` (the sum,
+    the degree-7 Chebyshev sigmoid on [-4, 4], plus its rotation by one
+    slot, squared) -> ``refresh`` (collective bootstrap back to the top
+    level) -> ``layer2`` (the sigmoid on [0, 4]) -> ``pcks`` (public-key
+    switch to a requester's key) -> ``decrypt``.
+
+    Every share crosses from its party to the aggregator as bytes, through
+    the reference-format codec of its protocol (``utils/serialization``);
+    ``wire_bytes`` counts them by protocol."""
+
+    def __init__(self, params, device, n_parties: int):
+        self.params = params
+        self.ctx = ctx = ckks.get_context(params, device)
+        self.device = device = ctx.device
+        self.n_parties = n_parties
+        self.sks = [ckks.KeyGenerator(params, device=device, seed=i).gen_secret_key()
+                    for i in range(n_parties)]
+        sk_col = self.sks[0].sk
+        for s in self.sks[1:]:
+            sk_col = ctx.ring_qp.add(sk_col, s.sk)
+        self.sk_col = ckks.SecretKey(sk_col)  # only for checks: no party holds it
+        self.crp_gen = CRPGenerator(b"dckks-sigmoid", ctx.ring_qp)
+        self.crp_gen.seed(b"common-seed")
+        self.enc = ckks.Encoder(params, device=device)
+        self.ev = ckks.Evaluator(params, device=device)
+        rng = np.random.default_rng(1)
+        self.xs = [rng.uniform(-4 / 3, 4 / 3, params.slots) for _ in range(n_parties)]
+        self.cheby1 = ckks.approximate(sigmoid, -4, 4, 7)
+        self.cheby2 = ckks.approximate(sigmoid, 0, 4, 7)
+        self.wire_bytes: dict[str, int] = {}
+
+    def _send(self, protocol: str, codec: str, share, *head):
+        """``share`` from its party to the aggregator: to bytes and back
+        through ``<codec>_share_to_bytes`` / ``_from_bytes``."""
+        data = getattr(ser, codec + "_share_to_bytes")(*head, share)
+        self.wire_bytes[protocol] = self.wire_bytes.get(protocol, 0) + len(data)
+        out = getattr(ser, codec + "_share_from_bytes")(data, self.device)
+        return out[-1] if head else out
+
+    def _gather(self, proto, protocol: str, codec: str, shares, *head):
+        return fold(proto, [self._send(protocol, codec, s, *head) for s in shares])
+
+    def ckg(self) -> ckks.PublicKey:
+        proto = dckks.CKGProtocol(self.params, device=self.device)
+        crp = self.crp_gen.clock_poly()
+        shares = [proto.gen_share(sk.sk, crp) for sk in self.sks]
+        return proto.gen_public_key(self._gather(proto, "ckg", "ckg", shares), crp)
+
+    def rkg(self) -> ckks.EvaluationKey:
+        proto = dckks.RKGProtocol(self.params, device=self.device)
+        crp = self.crp_gen.clock_polys(self.params.beta())
+        sks = [sk.sk for sk in self.sks]
+        ephs = [proto.new_ephemeral_key() for _ in sks]
+        r1 = self._gather(proto, "rkg", "rkg_round1",
+                          [proto.gen_share_round_one(e, s, crp) for e, s in zip(ephs, sks)])
+        r2 = self._gather(proto, "rkg", "rkg_round2",
+                          [proto.gen_share_round_two(r1, s, crp) for s in sks])
+        r3 = self._gather(proto, "rkg", "rkg_round3",
+                          [proto.gen_share_round_three(r2, e, s) for e, s in zip(ephs, sks)])
+        return proto.gen_relinearization_key(r2, r3)
+
+    def rtg(self) -> ckks.RotationKeys:
+        proto = dckks.RTGProtocol(self.params, device=self.device)
+        rot_keys = ckks.RotationKeys()
+        for rot_type, k, code in (("left", 1, ser.ROTATION_LEFT), ("conjugate", 0, ser.ROTATION_ROW)):
+            crp = self.crp_gen.clock_polys(self.params.beta())
+            shares = [proto.gen_share(rot_type, k, sk.sk, crp) for sk in self.sks]
+            proto.finalize(rot_type, k, self._gather(proto, "rtg", "rtg", shares, k, code),
+                           crp, rot_keys)
+        return rot_keys
+
+    def encrypt(self, pk: ckks.PublicKey) -> list[ckks.Ciphertext]:
+        """Party i's vector ``xs[i]`` under the collective key."""
+        return [ckks.Encryptor(self.params, pk=pk, device=self.device, seed=100 + i)
+                .encrypt(self.enc.encode(x)) for i, x in enumerate(self.xs)]
+
+    def layer1(self, cts: list[ckks.Ciphertext], rlk: ckks.EvaluationKey,
+               rot_keys: ckks.RotationKeys) -> ckks.Ciphertext:
+        """(s + rotate(s, 1))^2 with s = sigmoid(x_0 + ... + x_{n-1})."""
+        ev = self.ev
+        x = cts[0]
+        for ct in cts[1:]:
+            x = ev.add(x, ct)
+        s = ckks.evaluate_cheby_eco(ev, x, self.cheby1, rlk)
+        return ckks.algorithms.power_of_2(ev, ev.add(s, ev.rotate_columns(s, 1, rot_keys)), 1, rlk)
+
+    def refresh_masks(self, proto: dckks.RefreshProtocol, level: int) -> list:
+        """Each party's smudging mask planes (host big integers)."""
+        return [proto.gen_mask_planes(self.n_parties, level) for _ in self.sks]
+
+    def refresh_finish(self, proto: dckks.RefreshProtocol, ct: ckks.Ciphertext,
+                       masks: list) -> ckks.Ciphertext:
+        """The parties' shares on the device, over the wire, and the
+        recode and re-encryption at the top level."""
+        crs = self.crp_gen.clock_poly()[: self.ctx.ring_q.L]
+        shares = [proto.gen_share_masked(sk.sk, ct.value[1], crs, *m)
+                  for sk, m in zip(self.sks, masks)]
+        return proto.finalize(ct, crs, self._gather(proto, "refresh", "refresh", shares))
+
+    def refresh(self, ct: ckks.Ciphertext) -> ckks.Ciphertext:
+        """Collective refresh of ``ct`` (level restored to the top)."""
+        proto = dckks.RefreshProtocol(self.params, device=self.device)
+        return self.refresh_finish(proto, ct, self.refresh_masks(proto, ct.level))
+
+    def layer2(self, ct: ckks.Ciphertext, rlk: ckks.EvaluationKey) -> ckks.Ciphertext:
+        return ckks.evaluate_cheby_eco(self.ev, ct, self.cheby2, rlk)
+
+    def requester_key(self) -> tuple[ckks.SecretKey, ckks.PublicKey]:
+        return ckks.KeyGenerator(self.params, device=self.device, seed=10_000).gen_key_pair()
+
+    def pcks(self, ct: ckks.Ciphertext, pk_req: ckks.PublicKey) -> ckks.Ciphertext:
+        proto = dckks.PCKSProtocol(self.params, device=self.device)
+        shares = [proto.gen_share(sk.sk, pk_req, ct) for sk in self.sks]
+        return proto.key_switch(self._gather(proto, "pcks", "pcks", shares), ct)
+
+    def decrypt(self, ct: ckks.Ciphertext, sk_req: ckks.SecretKey) -> np.ndarray:
+        dec = ckks.Decryptor(self.params, sk_req, device=self.device)
+        return self.enc.decode(dec.decrypt(ct)).real
+
+    def want(self, exact: bool = True) -> np.ndarray:
+        """What :meth:`run` computes, in float64: with the sigmoid itself
+        (``exact``) or with the two Chebyshev interpolants the layers
+        evaluate."""
+        if exact:
+            f1 = f2 = lambda v: 1 / (1 + np.exp(-v))
+        else:
+            f1, f2 = (lambda v, c=c: cheby_float64(c, v) for c in (self.cheby1, self.cheby2))
+        s = f1(sum(self.xs))
+        return f2((s + np.roll(s, -1)) ** 2)
+
+    def run(self) -> np.ndarray:
+        """Every stage in order; returns the decrypted output slots."""
+        pk, rlk, rot_keys = self.ckg(), self.rkg(), self.rtg()
+        hidden = self.refresh(self.layer1(self.encrypt(pk), rlk, rot_keys))
+        sk_req, pk_req = self.requester_key()
+        return self.decrypt(self.pcks(self.layer2(hidden, rlk), pk_req), sk_req)
+
+
+def entry_dckks_sigmoid(device=None, params_idx: int | ckks.Parameters = ckks.PN14QP438,
+                        n_parties: int = 3) -> DckksSigmoid:
+    """The threshold-CKKS sigmoid network at a reference-shipped CKKS set
+    (PN14QP438, the reference's default, by default) or at the
+    ``ckks.Parameters`` given as ``params_idx``; returns its stages
+    (:class:`DckksSigmoid`), the parties' secret keys drawn.  ``run()``
+    gives the output slots; ``want()`` what they should be.  ``device=None``
+    means the GPU and raises when there is none."""
+    params = params_idx if isinstance(params_idx, ckks.Parameters) else ckks.default_params(params_idx)
+    return DckksSigmoid(params, device, n_parties)

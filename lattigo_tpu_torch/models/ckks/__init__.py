@@ -5,9 +5,12 @@ The slice ported so far: parameters, context, encoder, key generation
 conjugation keys), encryption, decryption, and every method of the
 evaluator (linear and constant ops, rescaling, multiplication with
 relinearization, key switching, rotations, conjugation, hoisted
-rotations).  Polynomial evaluation and the algorithms come later.
+rotations), baby-step/giant-step and Chebyshev polynomial evaluation, and
+the algorithms (powers, Goldschmidt inverse).  ``JitEvaluator`` has no
+port.
 """
 
+from lattigo_tpu_torch.models.ckks import algorithms
 from lattigo_tpu_torch.models.bfv.keygen import PublicKey, SecretKey, SwitchingKey
 from lattigo_tpu_torch.models.ckks.context import CKKSContext, get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, Plaintext
@@ -24,10 +27,20 @@ from lattigo_tpu_torch.models.ckks.params import (
     Parameters,
     default_params,
 )
+from lattigo_tpu_torch.models.ckks.polynomial_evaluation import (
+    ChebyshevInterpolation,
+    approximate,
+    evaluate_cheby_eco,
+    evaluate_cheby_fast,
+    evaluate_poly_eco,
+    evaluate_poly_fast,
+)
 
 __all__ = [
-    "CKKSContext", "Ciphertext", "Decryptor", "Encoder", "Encryptor",
+    "CKKSContext", "ChebyshevInterpolation", "Ciphertext", "Decryptor", "Encoder", "Encryptor",
     "EvaluationKey", "Evaluator", "KeyGenerator", "Parameters", "Plaintext",
     "PublicKey", "RotationKeys", "SecretKey", "SwitchingKey", "default_params",
     "get_context", "PN12QP109", "PN13QP218", "PN14QP438", "PN15QP880", "PN16QP1761",
+    "algorithms", "approximate", "evaluate_cheby_eco", "evaluate_cheby_fast",
+    "evaluate_poly_eco", "evaluate_poly_fast",
 ]

@@ -1,6 +1,5 @@
 """CKKS encryption/decryption (ckks/encryptor.go, ckks/decryptor.go).
-Ciphertexts live in the NTT domain.  ``encrypt_from_crp`` waits for the
-CRP stream."""
+Ciphertexts live in the NTT domain."""
 
 from __future__ import annotations
 
@@ -26,7 +25,15 @@ class Encryptor:
     def encrypt(self, pt: Plaintext, fast: bool = False) -> Ciphertext:
         if self.pk is not None:
             return self._encrypt_pk(pt, fast)
-        return self._encrypt_sk(pt, fast)
+        return self._encrypt_sk(pt, None, fast)
+
+    def encrypt_from_crp(self, pt: Plaintext, crp, fast: bool = False) -> Ciphertext:
+        """The sk path with a given uniform NTT-domain polynomial (a common
+        reference polynomial of the threshold protocols) in place of a fresh
+        one."""
+        if self.sk is None:
+            raise ValueError("CRP encryption requires a secret key")
+        return self._encrypt_sk(pt, crp, fast)
 
     def _mod_down_ntt(self, x, lvl: int):
         """QP coefficient-domain poly -> basis Q[0..lvl], NTT domain."""
@@ -58,12 +65,12 @@ class Encryptor:
             c0, c1 = self._mod_down_ntt(c0, lvl), self._mod_down_ntt(c1, lvl)
         return Ciphertext([ctx.ring_q.add(c0, pt.value), c1], pt.scale)
 
-    def _encrypt_sk(self, pt: Plaintext, fast: bool) -> Ciphertext:
+    def _encrypt_sk(self, pt: Plaintext, crp, fast: bool) -> Ciphertext:
         ctx = self.ctx
         lvl = pt.level
         sigma = self.params.sigma
         ring = ctx.ring_q if fast else ctx.ring_qp
-        a = samplers.uniform_poly(self.gen, ring)
+        a = samplers.uniform_poly(self.gen, ring) if crp is None else crp
         sk = drop_to_level(self.sk.sk, ring.L - 1)
         c0 = ring.neg(ring.mul_coeffs_montgomery(a, sk))
         if fast:

@@ -33,10 +33,15 @@ from lattigo_tpu_torch.ops import u64 as u
 
 
 class _Protocol:
+    scheme = bfv  # the scheme whose context the protocol runs on
+    seed_base = 1000  # the noise seed is seed_base + label unless given
+
     def __init__(self, params, device=None, seed: int | None = None, label: int = 0):
-        self.ctx = bfv.get_context(params, device)
+        self.ctx = self.scheme.get_context(params, device)
         self.params = self.ctx.params
-        self.gen = samplers.make_generator(self.ctx.device, 1000 + label if seed is None else seed)
+        self.beta = -(-len(self.params.qi) // self.params.alpha)  # blocks at the top level
+        self.gen = samplers.make_generator(
+            self.ctx.device, self.seed_base + label if seed is None else seed)
 
     @contextlib.contextmanager
     def using_generator(self, gen: torch.Generator):
@@ -159,7 +164,7 @@ class RKGProtocol(_Protocol):
         ring = self.ctx.ring_qp
         pool = self._sk_pool(sk)
         out = []
-        for i in range(self.params.beta):
+        for i in range(self.beta):
             e = self._add_block_q(self._gauss_qp_ntt(), pool, i)
             out.append(ring.mul_coeffs_montgomery_and_sub(u_eph, crp[i], e))
         return torch.stack(out)
@@ -168,7 +173,7 @@ class RKGProtocol(_Protocol):
         """(s_i*round1 + e, s_i*crp + e') (relinkey_gen.go:267-291)."""
         ring = self.ctx.ring_qp
         o0, o1 = [], []
-        for i in range(self.params.beta):
+        for i in range(self.beta):
             t0 = ring.mul_coeffs_montgomery(round1[i], sk)
             o0.append(ring.add(t0, self._gauss_qp_ntt()))
             o1.append(ring.mul_coeffs_montgomery_and_add(sk, crp[i], self._gauss_qp_ntt()))
@@ -180,7 +185,7 @@ class RKGProtocol(_Protocol):
         diff = ring.sub(u_eph, sk)
         return torch.stack([
             ring.mul_coeffs_montgomery_and_add(diff, round2[1][i], self._gauss_qp_ntt())
-            for i in range(self.params.beta)
+            for i in range(self.beta)
         ])
 
     def aggregate(self, s1, s2):
@@ -208,7 +213,7 @@ class RKGProtocolNaive(_Protocol):
         ring = self.ctx.ring_qp
         pool = self._sk_pool(sk)
         o0, o1 = [], []
-        for i in range(self.params.beta):
+        for i in range(self.beta):
             e0 = self._add_block_q(self._gauss_qp_ntt(), pool, i)
             e1 = self._gauss_qp_ntt()
             uu = self._ternary_qp_ntt(0.5)
@@ -220,7 +225,7 @@ class RKGProtocolNaive(_Protocol):
         """(sk*r1[0] + cpk0*v + e2, sk*r1[1] + cpk1*v + e3) per block."""
         ring = self.ctx.ring_qp
         o0, o1 = [], []
-        for i in range(self.params.beta):
+        for i in range(self.beta):
             h0 = ring.mul_coeffs_montgomery(round1[0][i], sk)
             h1 = ring.mul_coeffs_montgomery(round1[1][i], sk)
             vv = self._ternary_qp_ntt(0.5)
@@ -261,7 +266,7 @@ class RTGProtocol(_Protocol):
         ring = self.ctx.ring_qp
         pool = self._sk_pool(galois.permute_ntt(sk, gal_el))
         out = []
-        for i in range(self.params.beta):
+        for i in range(self.beta):
             e = self._add_block_q(self._gauss_qp_ntt(), pool, i)
             out.append(ring.mform(ring.mul_coeffs_montgomery_and_sub(crp[i], sk, e)))
         return torch.stack(out)

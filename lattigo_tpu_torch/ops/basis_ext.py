@@ -53,8 +53,10 @@ class ModUpParams:
             )[..., None],
             device,
         )
-        # correction: (-Q) mod pj, Montgomery form wrt pj
+        # correction: (-Q) mod pj, Montgomery form wrt pj (and plain, for
+        # the centered lift's conditional subtraction)
         self.negq_mont_ = _col([nt.mform((-big_q) % p, p) for p in self.dst], device)
+        self.negq_plain_ = _col([(-big_q) % p for p in self.dst], device)
 
         self.sq_ = _col(self.src, device)
         self.sqinv_ = _col([nt.mred_params(q) for q in self.src], device)
@@ -63,12 +65,18 @@ class ModUpParams:
         self.dp_u0_ = _col([nt.bred_params(p)[0] for p in self.dst], device)
 
 
-def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None) -> torch.Tensor:
+def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None, centered: bool = False) -> torch.Tensor:
     """Exact base conversion of ``x`` ([..., ls, N], basis src) to
     [..., len(dst_sel), N] in basis dst (ring/ring_basis_extension.go:352-393).
     ``dst_sel`` selects which destination limbs to produce (default: all).
     No selection or a ``range`` slices the tables and copies nothing from
-    the host; any other selection gathers them."""
+    the host; any other selection gathers them.
+
+    ``centered=True`` lifts the centered representative instead: the integer
+    x - Q*[x >= Q/2] re-expressed mod each p_j, as the JAX package does (the
+    reference centers through host big integers, dckks/public_refresh.go:
+    102-151).  The fractional part of the fixed-point accumulator is x/Q,
+    so its bit F-1 decides the half."""
     ls = x.shape[-2]
     assert ls == len(mp.src), (ls, len(mp.src))
     if dst_sel is None:
@@ -87,7 +95,8 @@ def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None) -> torch.Tensor:
     vacc = t[..., 0:1, :]
     for i in range(1, ls):
         vacc = vacc + t[..., i : i + 1, :]
-    v = u.shr(vacc + (2 * ls + 1), _V_FRAC_BITS)
+    vacc = vacc + (2 * ls + 1)
+    v = u.shr(vacc, _V_FRAC_BITS)
 
     dp, dpinv, dp_u0 = mp.dp_[sel], mp.dpinv_[sel], mp.dp_u0_[sel]
     # acc_j = sum_i y_i * (Q/q_i mod p_j), lazily reduced every 7 adds
@@ -101,7 +110,11 @@ def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None) -> torch.Tensor:
             acc = modred.bred_add(acc, dp, dp_u0)
             pending = 1
     corr = modred.mred(v, mp.negq_mont_[sel], dp, dpinv)
-    return modred.bred_add(acc + corr, dp, dp_u0)
+    out = modred.bred_add(acc + corr, dp, dp_u0)
+    if centered:
+        upper = u.shr(vacc, _V_FRAC_BITS - 1) & 1
+        out = torch.where(upper == 1, modred.cred(out + mp.negq_plain_[sel], dp), out)
+    return out
 
 
 class FastBasisExtender:

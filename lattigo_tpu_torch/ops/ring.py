@@ -143,9 +143,12 @@ class Ring:
         return x.shape[-2] - 1
 
     def _tbl_rows(self, table: torch.Tensor, limbs: tuple[int, ...]) -> torch.Tensor:
+        """The rows ``limbs`` of a per-limb table: a slice for a prefix, else
+        a gather through the cached index vector, so that no call copies an
+        index from the host (CUDA graphs capture these calls)."""
         if tuple(limbs) == tuple(range(len(limbs))):
             return table[: len(limbs)]
-        return table[list(limbs)]
+        return table.index_select(0, self.limb_vector(limbs))
 
     def limb_vector(self, limbs: tuple[int, ...]) -> torch.Tensor:
         """``limbs`` as an int32 vector on the device: the kernels index

@@ -24,7 +24,7 @@ def _col(vals, device) -> torch.Tensor:
 
 
 def _rescale_tbl(ring, lvl: int) -> torch.Tensor:
-    return _col(ring.rescale_params[lvl - 1], ring.device)
+    return ring._cached(("rescale", lvl), lambda: _col(ring.rescale_params[lvl - 1], ring.device))
 
 
 def _consts(ring, lvl: int):
@@ -59,7 +59,8 @@ def _half_shift(ring, lvl: int):
     """(q_last - 1) / 2 and its negation mod each kept q_i: the shift that
     turns the floor into a rounding."""
     p_half = (ring.moduli[lvl] - 1) >> 1
-    neg = _col([qi - p_half % qi for qi in ring.moduli[:lvl]], ring.device)
+    neg = ring._cached(("half_shift", lvl), lambda: _col(
+        [qi - p_half % qi for qi in ring.moduli[:lvl]], ring.device))
     return p_half, neg
 
 

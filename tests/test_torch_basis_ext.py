@@ -70,6 +70,36 @@ def test_mod_up_many_source_limbs():
     eq(tbx.mod_up(T(x), tmp), jbx.mod_up(ju.from_u64(x), jmp))
 
 
+# (source limbs, destination limbs) of a pool of six primes: the splits
+# the dCKKS refresh makes when it recodes from level ls - 1 to the top
+@pytest.mark.parametrize("ls,ld", [(1, 5), (2, 4), (3, 3), (5, 1)])
+@pytest.mark.parametrize("dst_sel", [None, (0,)])
+def test_mod_up_centered(ls, ld, dst_sel):
+    """The centered lift x - Q*[x >= Q/2] mod each destination prime,
+    bit for bit against the JAX package and against Python integers, on
+    random residues and on the integers around 0, Q/2 and Q."""
+    pool = nt.generate_ntt_primes(45, LOG_N, 6)
+    src, dst = pool[:ls], pool[ls : ls + ld]
+    big_q = int(np.prod([int(q) for q in src], dtype=object))
+    rng = np.random.default_rng(ls * 10 + ld)
+    ints = [int.from_bytes(rng.bytes(48), "little") % big_q for _ in range(N)]
+    ints[:8] = [0, 1, big_q // 2 - 1, big_q // 2, big_q // 2 + 1, (big_q + 1) // 2, big_q - 2, big_q - 1]
+    x = np.array([[v % q for v in ints] for q in src], dtype=np.uint64)[None]
+    jmp, tmp = jbx.ModUpParams(src, dst), tbx.ModUpParams(src, dst, "cpu")
+    got = tbx.mod_up(T(x), tmp, dst_sel, centered=True)
+    eq(got, jbx.mod_up(ju.from_u64(x), jmp, dst_sel, centered=True))
+    # against Python integers away from the fixed-point floor's documented
+    # window (within 2^-52 Q of Q/2 for the half, of Q for the floor)
+    window = big_q >> 52
+    keep = [abs(2 * v - big_q) > 2 * window and big_q - v > window for v in ints]
+    centred = [v - big_q if 2 * v >= big_q else v for v in ints]
+    sel = range(ld) if dst_sel is None else dst_sel
+    lift = lambda vals: np.array([[v % dst[j] for v in vals] for j in sel], dtype=np.uint64)[:, keep]
+    np.testing.assert_array_equal(tu.to_u64(got)[0][:, keep], lift(centred))
+    # without centering the same call lifts the representative in [0, Q)
+    np.testing.assert_array_equal(tu.to_u64(tbx.mod_up(T(x), tmp, dst_sel))[0][:, keep], lift(ints))
+
+
 @pytest.mark.parametrize("batch", [(), (2,)])
 def test_extender_up_and_down(ext, batch):
     jx, tx = ext

@@ -18,7 +18,7 @@ from lattigo_tpu.ops import galois as jgalois
 from lattigo_tpu.ops import scaling as jscaling
 from lattigo_tpu.ops import u64 as ju
 from lattigo_tpu_torch import convert
-from lattigo_tpu_torch.entry import entry_ckks
+from lattigo_tpu_torch.entry import entry_ckks, entry_dckks_sigmoid
 from lattigo_tpu_torch.models import ckks as tckks
 from lattigo_tpu_torch.ops import galois as tgalois
 from lattigo_tpu_torch.ops import ring as tring_mod
@@ -431,6 +431,7 @@ def test_entry_points_default_to_cuda():
         lambda: tckks.Decryptor(TP, object()),
         lambda: tckks.Evaluator(TP),
         lambda: entry_ckks(params_idx=tckks.PN12QP109),
+        lambda: entry_dckks_sigmoid(),
     ]
     for make in makers:
         if torch.cuda.is_available():
