@@ -30,12 +30,23 @@ requester, decryption; every share through the reference byte codecs),
 with the rest of dCKKS beside it (collective key switch, two-round
 relinearization key, conjugation, the refresh's device recode against the
 host big-integer one, ``encrypt_from_crp``, ``evaluate_poly_fast`` and
-``evaluate_cheby_fast``, codec bytes of shares made on the card).  Every
-phase prints one JSON line; any failure exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``.
+``evaluate_cheby_fast``, codec bytes of shares made on the card); the
+multi-rank layer (``parallel``): ``entry.dryrun_multichip`` at PN12QP109
+with 4 party ranks over gloo on the one card and with 1 rank over NCCL
+(every threshold protocol on the party mesh, the cross-rank four-step NTT,
+the scheme step inside ``sharded_ntt``), and ``weak_scaling_mul`` on the
+NCCL world of one at CKKS PN16QP1761 with 8 ciphertexts and on the 4-rank
+gloo world at CKKS PN12QP109; and the example twins (``examples``): ride
+hailing at log N = 12 and the 3-party set intersection at PN13QP218, with
+the ``OpProfiler`` table of its AND chain.  The ``dbfv`` and ``dckks``
+phases also print the ``OpProfiler`` table of one extra, untimed call of
+the PIR cloud step and of ``layer1``.  Every phase prints one JSON line;
+any failure exits non-zero.  The last line is ``{"ok": true, "device":
+{...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
-full_width, ckks, bfv15, dbfv, rotate, dckks, and ``profile``, which is not in the default run:
+full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, and
+``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
 device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
 ptxas' registers and spills of every kernel to the ``build`` line;
@@ -73,15 +84,19 @@ if not torch.cuda.is_available():
 import numpy as np
 
 from lattigo_tpu_torch import _build, native
-from lattigo_tpu_torch.entry import entry, entry_ckks, entry_dbfv_pir, entry_dckks_sigmoid, fold
+from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_ckks, entry_dbfv_pir,
+                                     entry_dckks_sigmoid, fold)
+from lattigo_tpu_torch.examples import bfv_riding, dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.ops.ring import Ring
+from lattigo_tpu_torch.parallel import launch, scaling
 from lattigo_tpu_torch.tools.timing import event_ms, graph_ms
 from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils.precision import precision_stats
+from lattigo_tpu_torch.utils.profiling import OpProfiler
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -126,8 +141,12 @@ KERNELS = {
 ROUTE_KERNEL = {"tile": "ntt_tile", "mxu": "ntt_mxu", "passes": "ntt_passes"}
 
 
+T0 = time.time()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t": time.time() - T0, **fields}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -206,19 +225,8 @@ def time_turns(fns, reps: int = REPS // 2) -> list[float]:
     return [statistics.mean(t) for t in times]
 
 
-def reset_counts() -> None:
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
-        k["wrapper"].inverse_launches = 0
-
-
-def read_counts() -> dict:
-    out = {}
-    for name, k in KERNELS.items():
-        w = k["wrapper"]
-        out[name + "_fwd"] = w.launches - w.inverse_launches
-        out[name + "_inv"] = w.inverse_launches
-    return out
+reset_counts = ring_mod.reset_launch_counts
+read_counts = ring_mod.launch_counts
 
 
 def plain_of(name: str, ring, x, limbs, inverse):
@@ -385,20 +393,27 @@ def phase_build(verbose: bool) -> None:
 def record_calls(run) -> list[tuple]:
     """The NTT calls ``run`` makes, as (ring, shape, limbs, inverse, route):
     the shapes the main path gives each kernel."""
-    calls = []
-    real = Ring._transform
-
-    def spy(self, x, limbs, inverse):
-        calls.append((self, tuple(x.shape), tuple(limbs), inverse, self._route(x)))
-        return real(self, x, limbs, inverse)
-
-    Ring._transform = spy
-    try:
+    with ring_mod.record_transforms() as calls:
         run()
-    finally:
-        Ring._transform = real
     torch.cuda.synchronize()
     return calls
+
+
+_rank_rings: dict = {}
+
+
+def rank_calls(transforms) -> list[tuple]:
+    """Transforms that ranks reported, as (moduli, shape, limbs, inverse,
+    route), as ``record_calls`` gives them, on rings of DEV; those of the
+    kernels' routes only."""
+    out = []
+    for moduli, shape, limbs, inverse, route in transforms:
+        if route not in ROUTE_KERNEL:
+            continue
+        if moduli not in _rank_rings:
+            _rank_rings[moduli] = Ring(shape[-1], list(moduli), device=DEV)
+        out.append((_rank_rings[moduli], tuple(shape), tuple(limbs), inverse, route))
+    return out
 
 
 def measure_shape(name, ring, shape, limbs, inverse, seed) -> dict:
@@ -456,22 +471,34 @@ def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
     return out
 
 
+MEASURED: dict = {}  # (moduli, shape, limbs, inverse, route) -> its measure_calls row
+
+
 def measure_calls(calls, label: str) -> list[dict]:
     """Every distinct NTT call of a forward: its kernel against the plain
-    version, timed, with the other kernels' times on the same shape."""
+    version, timed, with the other kernels' times on the same shape.  A
+    shape an earlier phase of this run measured on a ring of the same
+    moduli is not measured again (``measured_by`` names that phase)."""
     shapes = []
     seen = set()
-    for i, (ring, shape, limbs, inverse, route) in enumerate(calls):
-        key = (id(ring), shape, limbs, inverse, route)
-        if key in seen:
+    key_of = lambda c: (tuple(c[0].moduli), *c[1:])
+    for i, call in enumerate(calls):
+        ring, shape, limbs, inverse, route = call
+        key = key_of(call)
+        if key in seen or route not in ROUTE_KERNEL:
             continue
         seen.add(key)
+        n_calls = sum(1 for c in calls if key_of(c) == key)
+        if key in MEASURED:
+            shapes.append(dict(MEASURED[key], calls=n_calls))
+            continue
         name = ROUTE_KERNEL[route]
         r = measure_shape(name, ring, shape, limbs, inverse, seed=1000 + i)
-        r.update(kernel=name, calls=sum(1 for c in calls if (id(c[0]), *c[1:]) == key),
+        r.update(kernel=name, calls=n_calls, measured_by=label,
                  other_kernels=cross_time(name, ring, shape, limbs, inverse, seed=2000 + i))
         if r["max_abs_err"] != 0:
             fail(f"{label}: {name} disagrees with its plain version at {shape} limbs {limbs}")
+        MEASURED[key] = r
         shapes.append(r)
         torch.cuda.empty_cache()
     return shapes
@@ -830,6 +857,19 @@ def _same(a, b) -> bool:
 HEAVY_GRAPH_CALLS = 2  # calls of a whole scheme step captured in one graph
 
 
+def profile_ops(holder, fn) -> dict:
+    """One extra, untimed call of ``fn`` with ``holder.ev`` wrapped in an
+    ``OpProfiler``: the host time of each evaluator method it calls, each
+    ending in a device synchronize (``utils/profiling.py``)."""
+    prof = OpProfiler(holder.ev)
+    holder.ev = prof
+    try:
+        fn()
+    finally:
+        holder.ev = prof._ev
+    return prof.as_dict()
+
+
 def phase_dbfv() -> dict:
     """The 3-party PIR of examples/dbfv_pir.py at PN13QP218 with 8 rows,
     stage by stage through ``entry_dbfv_pir``: each stage's seconds and
@@ -885,6 +925,7 @@ def phase_dbfv() -> dict:
     cloud_ms = time_ms(cloud, reps=5)
     cloud_device_ms = device_time(cloud, count=HEAVY_GRAPH_CALLS)
     cks_ms = time_ms(lambda: pir.cks(result, sk_req), reps=5)
+    cloud_ops = profile_ops(pir, cloud)
 
     # the other three protocols at the same set, under the summed key
     dec = bfv.Decryptor(params, pir.sk_col, device=DEV)
@@ -934,7 +975,7 @@ def phase_dbfv() -> dict:
             fail(f"dbfv: the path never launched {name}")
     return dict(label=label, n=params.n, parties=pir.n_parties, rows=pir.n_rows,
                 crp_walk=native.walk_route(), setup_s=setup_s, first_cloud_s=first_cloud_s,
-                ms=cloud_ms, device_ms=cloud_device_ms, cks_ms=cks_ms,
+                ms=cloud_ms, device_ms=cloud_device_ms, cks_ms=cks_ms, cloud_ops=cloud_ops,
                 stage_counts=counts, pir_counts=pir_counts, counts=total, exact=checks,
                 shapes=measure_calls(calls, label))
 
@@ -1103,6 +1144,7 @@ def phase_dckks() -> dict:
     for name, t in layers.items():
         if not isinstance(t["device_ms"], float):
             fail(f"dckks: {name} could not be timed on the device: {t['device_ms']}")
+    layer1_ops = profile_ops(net, layer1)
 
     # the rest of dCKKS at the same set, under the parties' summed key
     enc, ev = net.enc, net.ev
@@ -1216,9 +1258,117 @@ def phase_dckks() -> dict:
     return dict(label=label, n=params.n, slots=slots, parties=net.n_parties,
                 crp_walk=native.walk_route(), setup_s=seconds, first_s=first_s,
                 refresh_host_s=seconds["refresh_masks"], refresh_device_s=seconds["refresh_shares"],
-                layers=layers, wire_bytes=net.wire_bytes, precision_bits=precision, checks=checks,
+                layers=layers, layer1_ops=layer1_ops, wire_bytes=net.wire_bytes,
+                precision_bits=precision, checks=checks,
                 codec_bytes=codec_bytes, stage_counts=counts, counts=path_counts,
                 all_counts=_sum_counts(counts), shapes=measure_calls(calls, label))
+
+
+# (ranks, backend, CKKS set of weak_scaling_mul, its name, ciphertexts a
+# rank, timed steps)
+WORLDS = ((4, "gloo", ckks.PN12QP109, "PN12QP109", 4, 10),
+          (1, "nccl", ckks.PN16QP1761, "PN16QP1761", 8, 5))
+
+
+def phase_parallel() -> dict:
+    """The multi-rank layer on the card, in two worlds: 4 party ranks over
+    gloo on the one card (every rank on cuda:0, gloo staging tensors
+    through the host) and 1 rank over NCCL.  In each, ``dryrun_multichip``
+    at PN12QP109 with its own checks (exact decryption of every stage, the
+    cross-rank NTT against ``ring_q.ntt`` / ``intt``, the step inside
+    ``sharded_ntt`` equal to the unsharded one with no kernel launched,
+    every rank's keys and ciphertexts equal), seconds and launches by rank
+    and stage; then ``weak_scaling_mul``: at CKKS PN12QP109 on the 4 gloo
+    ranks (one card: its throughput, not a scaling number), at CKKS
+    PN16QP1761 with 8 ciphertexts on the NCCL rank (the long-row kernel's
+    shapes).  Every kernel is held against its plain version at every shape
+    a rank gave it."""
+    label = "parallel"
+    worlds, scaling_runs, counts, transforms = {}, {}, [], set()
+    for n, backend, idx, name, batch, iters in WORLDS:
+        t0 = time.time()
+        with launch.World(n, backend, "cuda") as world:
+            spawn_s = time.time() - t0
+            t0 = time.time()
+            r = dryrun_multichip(n, device=DEV, backend=backend, world=world)
+            dryrun_s = time.time() - t0
+            per_rank = [_sum_counts(c) for c in r["counts"]]
+            for rank, c in enumerate(per_rank):
+                if not (c["ntt_tile_fwd"] + c["ntt_tile_inv"]) or not (c["ntt_mxu_fwd"] + c["ntt_mxu_inv"]):
+                    fail(f"parallel: rank {rank} of the {backend} world launched {c}")
+            counts += per_rank
+            for ts in r["transforms"]:
+                transforms.update(ts)
+            worlds[f"{backend}_{n}"] = dict(
+                ok=r["ok"], spawn_s=spawn_s, dryrun_s=dryrun_s, stage_seconds=r["seconds"],
+                stage_counts=r["counts"], rank_counts=per_rank, digests=r["digests"])
+            t0 = time.time()
+            outs = world.run(launch.traced, scaling.weak_scaling_mul, ckks.default_params(idx),
+                             None, batch, iters)
+        rates = outs[0][0]
+        if any(not (math.isfinite(v) and v > 0) for v in rates.values()):
+            fail(f"parallel: weak_scaling_mul at {name} gave {rates}")
+        per_rank = [o[1] for o in outs]
+        counts += per_rank
+        for o in outs:
+            transforms.update(o[2])
+        scaling_runs[f"{name}_{backend}_{n}"] = dict(
+            ct_mults_per_s={str(k): v for k, v in rates.items()}, ranks=n, backend=backend,
+            batch_per_rank=batch, iters=iters, seconds=time.time() - t0, rank_counts=per_rank,
+            note=f"{n} ranks share one card: its throughput, not a scaling number" if n > 1 else None)
+    total = _sum_counts(dict(enumerate(counts)))  # over ranks
+    if total["ntt_passes_fwd"] + total["ntt_passes_inv"] == 0:
+        fail("parallel: weak_scaling_mul at PN16QP1761 never launched the long-row kernel")
+    return dict(label=label, worlds=worlds, scaling=scaling_runs, counts=total,
+                shapes=measure_calls(rank_calls(sorted(transforms)), label))
+
+
+def phase_examples() -> dict:
+    """The example twins on the card: ride hailing at log N = 12 (2048
+    taxis), every distance exact; the 3-party set intersection at
+    PN13QP218 stage by stage (keygen, encrypt, AND chain, PCKS, decrypt),
+    the intersection exact, and the ``OpProfiler`` table of one extra,
+    untimed AND chain.  Seconds and launches of each; every kernel held
+    against its plain version at every shape they give it."""
+    label = "examples"
+    calls = []
+    reset_counts()
+    out = []
+    calls += record_calls(lambda: out.append(bfv_riding.ride(12, DEV)))
+    ride = out[0]
+    ride["counts"] = read_counts()
+    if not ride["ok"] or ride["n_taxis"] != 2048:
+        fail(f"examples: ride hailing at log N = 12 is not exact ({ride['n_taxis']} taxis)")
+
+    psi = dbfv_psi.Psi(3, 13, DEV)
+    seconds, stage_counts = {}, {}
+
+    def stage(name, fn):
+        reset_counts()
+        res = []
+        t0 = time.time()
+        calls.extend(record_calls(lambda: res.append(fn())))
+        seconds[name] = time.time() - t0
+        stage_counts[name] = read_counts()
+        return res[0]
+
+    pk, rlk = stage("keygen", psi.keygen)
+    cts = stage("encrypt", lambda: psi.encrypt(pk))
+    acc = stage("and_chain", lambda: psi.and_chain(cts, rlk))
+    switched, sk_out = stage("pcks", lambda: psi.pcks(acc))
+    got = stage("decrypt", lambda: psi.decrypt(switched, sk_out))
+    want = psi.want()
+    if got.shape != (psi.params.n,) or not (got == want).all():
+        fail("examples: the set intersection at PN13QP218 is not exact")
+    and_ops = profile_ops(psi, lambda: psi.and_chain(cts, rlk))
+    counts = _sum_counts({"ride": ride["counts"], **stage_counts})
+    for name in ("ntt_tile", "ntt_mxu"):
+        if counts[name + "_fwd"] + counts[name + "_inv"] == 0:
+            fail(f"examples: the examples never launched {name}")
+    return dict(label=label, ride=ride,
+                psi=dict(n=psi.params.n, parties=3, elements=int(want.sum()), setup_s=seconds,
+                         stage_counts=stage_counts, and_chain_ops=and_ops),
+                counts=counts, shapes=measure_calls(calls, label))
 
 
 def phase_profile(make, label: str) -> None:
@@ -1276,7 +1426,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,small,main_path,full_width,ckks,bfv15,dbfv,"
-                            "rotate,dckks")
+                            "rotate,dckks,parallel,examples")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
@@ -1338,6 +1488,16 @@ def main() -> None:
     if "dckks" in phases:
         res = phase_dckks()
         emit("dckks", **res)
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        torch.cuda.empty_cache()
+    if "parallel" in phases:
+        res = phase_parallel()
+        emit("parallel", **res)
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "ntt_passes"))
+        torch.cuda.empty_cache()
+    if "examples" in phases:
+        res = phase_examples()
+        emit("examples", **res)
         summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
         torch.cuda.empty_cache()
     if "profile" in phases:

@@ -6,17 +6,28 @@ retrieval over threshold BFV of examples/dbfv_pir.py
 (examples/dbfv/pir/pir.go), and an N-party encrypted two-layer sigmoid
 network over threshold CKKS with a collective refresh between the layers
 (examples/ckks_sigmoid.py's Chebyshev sigmoid on tests/test_dckks.py's
-protocol sequence)."""
+protocol sequence), and the multi-rank dry run of every threshold protocol
+on a party mesh with the cross-rank NTT (``__graft_entry__.dryrun_multichip``)."""
 
 from __future__ import annotations
 
+import hashlib
 import math
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from numpy.polynomial import chebyshev
 
+from lattigo_tpu_torch import _build
+from lattigo_tpu_torch import device as _device
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
+from lattigo_tpu_torch.ops import ring as ring_mod
+from lattigo_tpu_torch.parallel import launch
+from lattigo_tpu_torch.parallel import protocols as pp
+from lattigo_tpu_torch.parallel.cross_ntt import ntt_four_step, sharded_ntt
+from lattigo_tpu_torch.parallel.mesh import make_mesh
 from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils.prng import CRPGenerator
 
@@ -406,3 +417,170 @@ def entry_dckks_sigmoid(device=None, params_idx: int | ckks.Parameters = ckks.PN
     means the GPU and raises when there is none."""
     params = params_idx if isinstance(params_idx, ckks.Parameters) else ckks.default_params(params_idx)
     return DckksSigmoid(params, device, n_parties)
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dryrun_rank(params, device_type: str) -> dict:
+    """One rank of :func:`dryrun_multichip`: party ``rank`` of a mesh of
+    every rank on the ``party`` axis.  Returns its stage seconds, kernel
+    launches by stage, digests of what each stage made (equal on every rank
+    when the combined shares are) and the distinct transforms it made
+    (``(moduli, shape, limbs, inverse, route)``)."""
+    n_party = dist.get_world_size()
+    mesh = make_mesh(n_party, party=n_party, device_type=device_type)
+    group, dev = mesh.group("party"), mesh.device
+    ctx = bfv.get_context(params, dev)
+    seconds, counts, digests = {}, {}, {}
+
+    def stage(name, fn):
+        ring_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = ring_mod.launch_counts()
+        return out
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise RuntimeError(f"dryrun_multichip, rank {dist.get_rank()}: {what}")
+
+    with ring_mod.record_transforms() as calls:
+        sks = [bfv.KeyGenerator(params, device=dev, seed=30 + i).gen_secret_key()
+               for i in range(n_party)]
+        sk_list = [s.sk for s in sks]
+        acc = sk_list[0]
+        for s in sk_list[1:]:
+            acc = ctx.ring_qp.add(acc, s)
+        sk_col = bfv.SecretKey(acc)  # only for checks: no party holds it
+        crpg = CRPGenerator(b"dryrun", ctx.ring_qp)
+        crpg.seed(b"seed")
+
+        crp = crpg.clock_poly()
+        pk = stage("ckg", lambda: pp.ckg_mesh(dbfv.CKGProtocol(params, device=dev, seed=1),
+                                              group, sk_list, crp))
+        crp_b = crpg.clock_polys(params.beta)
+        rlk = stage("rkg", lambda: pp.rkg_mesh(dbfv.RKGProtocol(params, device=dev, seed=5),
+                                               group, sk_list, crp_b))
+        rot_keys = stage("rtg", lambda: pp.rtg_mesh(
+            dbfv.RTGProtocol(params, device=dev, seed=6), group, "left", 1, sk_list, crp_b,
+            bfv.RotationKeys()))
+        digests.update(pk=_digest(*pk.pk), rlk=_digest(rlk.evakey[0].key0, rlk.evakey[0].key1),
+                       rtg=_digest(rot_keys.left[1].key0, rot_keys.left[1].key1))
+
+        enc = bfv.Encoder(params, device=dev)
+        msg = np.arange(params.n, dtype=np.uint64) % np.uint64(params.t)
+        ct = stage("encrypt", lambda: bfv.Encryptor(params, pk=pk, device=dev).encrypt(
+            enc.encode_uint(msg)))
+        dec_col = bfv.Decryptor(params, sk_col, device=dev)
+        decode = lambda c, dec=dec_col: enc.decode_uint(dec.decrypt(c))
+
+        # one transform of c1 split over the ranks, exact against the ring's
+        rq = ctx.ring_q
+        c1 = rq.intt(ct.value[1])
+
+        def cross_ntt():
+            fwd = ntt_four_step(rq, c1, group)
+            check(torch.equal(fwd, rq.ntt(c1)), "the cross-rank NTT differs from ring_q.ntt")
+            back = ntt_four_step(rq, fwd, group, inverse=True)
+            check(torch.equal(back, c1), "the cross-rank inverse NTT differs from ring_q.intt")
+
+        stage("cross_ntt", cross_ntt)
+        ev = bfv.Evaluator(params, device=dev)
+        want_sq = msg * msg % np.uint64(params.t)
+        ct_sq = stage("mul_relin", lambda: ev.relinearize(ev.mul(ct, ct), rlk))
+        check((decode(ct_sq) == want_sq).all(), "mul + relinearize does not decrypt exactly")
+
+        def sharded():
+            with sharded_ntt(group, min_n=params.n):
+                return ev.relinearize(ev.mul(ct, ct), rlk)
+
+        ct_sq2 = stage("mul_relin_sharded", sharded)
+        check(all(torch.equal(a, b) for a, b in zip(ct_sq.value, ct_sq2.value)),
+              "mul + relinearize inside sharded_ntt differs from the unsharded one")
+        check((decode(ct_sq2) == want_sq).all(),
+              "mul + relinearize inside sharded_ntt does not decrypt exactly")
+        check(sum(counts["mul_relin_sharded"].values()) == 0,
+              "a kernel was launched inside sharded_ntt")
+
+        ct_rot = stage("rotate", lambda: ev.rotate_columns(ct, 1, rot_keys))
+        half = params.n >> 1
+        check((decode(ct_rot) == np.concatenate([np.roll(msg[:half], -1),
+                                                  np.roll(msg[half:], -1)])).all(),
+              "rotate_columns(1) does not decrypt exactly")
+
+        sk_out, pk_out = bfv.KeyGenerator(params, device=dev, seed=2).gen_key_pair()
+        ct2 = stage("pcks", lambda: pp.pcks_mesh(dbfv.PCKSProtocol(params, device=dev, seed=3),
+                                                 group, sk_list, pk_out, ct))
+        check((decode(ct2, bfv.Decryptor(params, sk_out, device=dev)) == msg).all(),
+              "PCKS does not decrypt exactly under the target key")
+
+        crs = crpg.clock_poly()
+        ct3 = stage("refresh", lambda: pp.refresh_mesh(
+            dbfv.RefreshProtocol(params, device=dev, seed=4), group, sk_list, ct, crs))
+        check((decode(ct3) == msg).all(), "refresh does not decrypt exactly")
+        digests.update(mul_relin=_digest(*ct_sq.value), pcks=_digest(*ct2.value),
+                       refresh=_digest(*ct3.value))
+    return dict(seconds=seconds, counts=counts, digests=digests,
+                transforms=ring_mod.distinct_transforms(calls))
+
+
+def dryrun_multichip(n_devices: int, device=None, backend: str = "nccl",
+                     params_idx: int | bfv.Parameters = bfv.PN12QP109,
+                     world: launch.World | None = None) -> dict:
+    """The twin of ``__graft_entry__.dryrun_multichip``: the full
+    threshold-BFV pipeline on a mesh of ``n_devices`` ranks, one party a
+    rank, every protocol aggregated by all-gather + modular fold:
+
+      CKG -> 3-round RKG -> RTG (left by 1) -> encrypt under the collective
+      key -> cross-rank four-step NTT round trip of c1 -> mul + relinearize
+      -> the same inside ``sharded_ntt`` (every transform cross-rank, no
+      kernel) -> rotate_columns(1) -> PCKS to a fresh key -> collective
+      refresh,
+
+    each checked by exact decryption under the summed or target key on every
+    rank, and every rank's keys and ciphertexts equal (dbfv/dbfv_test.go's
+    summed-key verification).  ``params_idx`` is a BFV set index
+    (PN12QP109 by default) or a ``bfv.Parameters``.
+
+    Rank r runs on ``cuda:(r % device_count)`` (``device=None`` or a CUDA
+    device; None raises without a GPU) or on the CPU (``device="cpu"``).
+    ``backend`` is ``"nccl"`` (one card a rank: it raises with more ranks
+    than cards) or ``"gloo"``; it is never switched.  ``world``: an open
+    ``launch.World`` of ``n_devices`` ranks with that backend to run on
+    (default: a new one for this call).  Returns the JAX function's "OK"
+    line and, by rank, each stage's seconds and kernel launches and the
+    transforms made."""
+    params = params_idx if isinstance(params_idx, bfv.Parameters) else bfv.default_params(params_idx)
+    device_type = _device.resolve(device).type
+    launch.check_backend(n_devices, backend, device_type)
+    if world is None:
+        if device_type == "cuda":
+            _build.build()  # once here, not once a rank
+        ranks = launch.run(n_devices, _dryrun_rank, params, device_type,
+                           backend=backend, device_type=device_type)
+    elif (world.size, world.backend, world.device_type) != (n_devices, backend, device_type):
+        raise ValueError(f"a world of {world.size} {world.backend} ranks on {world.device_type}"
+                         f" for {n_devices} {backend} ranks on {device_type}")
+    else:
+        ranks = world.run(_dryrun_rank, params, device_type)
+    for r, out in enumerate(ranks[1:], 1):
+        if out["digests"] != ranks[0]["digests"]:
+            raise RuntimeError(f"dryrun_multichip: rank {r}'s keys or ciphertexts differ from "
+                               "rank 0's")
+    label = (f"log N = {params.log_n}" if isinstance(params_idx, bfv.Parameters)
+             else ("PN12QP109", "PN13QP218", "PN14QP438", "PN15QP880")[params_idx])
+    ok = (f"dryrun_multichip OK: {n_devices}-party mesh at {label}, CKG -> RKG(3 rounds) -> "
+          f"RTG -> encrypt -> cross-chip four-step NTT roundtrip -> mul+relin -> rotate -> "
+          f"PCKS -> refresh, exact decryptions (N={params.n}, "
+          f"L={len(params.qi) + len(params.pi)})")
+    return dict(ok=ok, backend=backend, device_type=device_type, parties=n_devices,
+                digests=ranks[0]["digests"], seconds=[r["seconds"] for r in ranks],
+                counts=[r["counts"] for r in ranks], transforms=[r["transforms"] for r in ranks])

@@ -9,7 +9,9 @@ randomness comes from the blake2b CRP stream
 (:mod:`lattigo_tpu_torch.utils.prng`), as dbfv/dbfv.go:70-73.
 
 Each protocol draws its noise from one ``torch.Generator`` on its device,
-seeded with ``seed`` (default ``1000 + label``); ``torch`` cannot reproduce
+seeded with ``seed`` (default ``1000 + label``); run over a party group
+(``lattigo_tpu_torch.parallel.protocols``), each party draws from its own
+generator instead (``using_generator``).  ``torch`` cannot reproduce
 ``jax.random`` bits, so shares agree with the JAX package's in distribution,
 and every deterministic step agrees bit for bit.
 """
@@ -40,8 +42,11 @@ class _Protocol:
         self.ctx = self.scheme.get_context(params, device)
         self.params = self.ctx.params
         self.beta = -(-len(self.params.qi) // self.params.alpha)  # blocks at the top level
-        self.gen = samplers.make_generator(
-            self.ctx.device, self.seed_base + label if seed is None else seed)
+        self.seed = self.seed_base + label if seed is None else seed
+        self.gen = samplers.make_generator(self.ctx.device, self.seed)
+        # runs over a party group so far: the index that, with the seed and
+        # the party, seeds each party's stream (parallel/protocols.py)
+        self.party_runs = 0
 
     @contextlib.contextmanager
     def using_generator(self, gen: torch.Generator):

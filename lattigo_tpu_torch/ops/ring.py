@@ -12,13 +12,17 @@ Counterpart of ``lattigo_tpu/ops/ring.py`` (and of the reference's
 * ``_ntt_simple`` / ``_intt_simple`` run the reference's merged-psi schedule
   as log2(N) vectorised butterfly stages; they are the plain version and the
   oracle of the CUDA kernels.  ``ntt_limbs`` / ``intt_limbs`` dispatch to
-  the kernels (see :func:`Ring._route`).
+  the kernels (see :func:`Ring._route`), or, inside a
+  :func:`lattigo_tpu_torch.parallel.cross_ntt.sharded_ntt` block, to the
+  cross-rank four-step transform, as the JAX package's ring does
+  (``lattigo_tpu/ops/ring.py:197-205``, ``:289-297``).
 * The JAX package's ``Ring.ntt_roll`` is a TPU schedule of the same
   transform that :meth:`Ring.ntt` computes, and has no twin here.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 
 import numpy as np
@@ -27,6 +31,7 @@ import torch
 from lattigo_tpu_torch import device as _device
 from lattigo_tpu_torch.ops import modred, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.parallel import cross_ntt
 
 # Override of the NTT routing, for timing one kernel on the other's shapes
 # and for running whole scheme ops on the plain schedule:
@@ -41,6 +46,51 @@ _MXU_MIN_BATCH = 2
 # tables); the least recently used one goes first, so that user-chosen
 # scalars cannot grow it without bound
 OP_CACHE_SIZE = 64
+# the list that record_transforms() fills, while one is open
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def record_transforms():
+    """Yields a list that collects ``(ring, shape, limbs, inverse, route)``
+    for every transform made in the block: the shapes a path gives each
+    kernel (route ``"cross"``: the cross-rank four-step transform)."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def distinct_transforms(calls) -> list[tuple]:
+    """The distinct ``(moduli, shape, limbs, inverse, route)`` among the
+    calls ``record_transforms`` collected: host values, which a rank can
+    send to its parent."""
+    return sorted({(tuple(r.moduli), shape, limbs, inverse, route)
+                   for r, shape, limbs, inverse, route in calls})
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel since the last reset, by direction
+    (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...)."""
+    out = {}
+    for name, w in _kernel_wrappers().items():
+        out[name + "_fwd"] = w.launches - w.inverse_launches
+        out[name + "_inv"] = w.inverse_launches
+    return out
+
+
+def reset_launch_counts() -> None:
+    for w in _kernel_wrappers().values():
+        w.launches = w.inverse_launches = 0
+
+
+def _kernel_wrappers() -> dict:
+    from lattigo_tpu_torch.ops import mxu_ntt, pallas_ntt, tile_ntt
+
+    return {"ntt_tile": tile_ntt.ntt_tile, "ntt_mxu": mxu_ntt.ntt_mxu,
+            "ntt_passes": pallas_ntt.ntt_passes}
 
 
 def _tbl(vals, shape, device) -> torch.Tensor:
@@ -203,7 +253,14 @@ class Ring:
 
     def _transform(self, x: torch.Tensor, limbs, inverse: bool) -> torch.Tensor:
         limbs = tuple(int(l) for l in limbs)
-        route = self._route(x)
+        group = cross_ntt.active_for(self.n)
+        route = "cross" if group is not None else self._route(x)
+        if _RECORD is not None:
+            _RECORD.append((self, tuple(x.shape), limbs, inverse, route))
+        if route == "cross":
+            # no kernel: the JAX package's cross-chip path is collectives
+            # and tensor butterflies too
+            return cross_ntt.ntt_four_step(self, x, group, inverse=inverse, limbs=limbs)
         if route == "mxu":
             from lattigo_tpu_torch.ops import mxu_ntt
 
