@@ -38,14 +38,23 @@ the scheme step inside ``sharded_ntt``), and ``weak_scaling_mul`` on the
 NCCL world of one at CKKS PN16QP1761 with 8 ciphertexts and on the 4-rank
 gloo world at CKKS PN12QP109; and the example twins (``examples``): ride
 hailing at log N = 12 and the 3-party set intersection at PN13QP218, with
-the ``OpProfiler`` table of its AND chain.  The ``dbfv`` and ``dckks``
-phases also print the ``OpProfiler`` table of one extra, untimed call of
-the PIR cloud step and of ``layer1``.  Every phase prints one JSON line;
-any failure exits non-zero.  The last line is ``{"ok": true, "device":
-{...}}``.
+the ``OpProfiler`` table of its AND chain; and the compiled programs
+(``jit``): ``tjit(forward)`` at PN12QP109, the PIR cloud step at PN13QP218,
+the PSI AND chain at PN13QP218 and bench.py's degree-31 Chebyshev at
+PN15QP880 through ``JitEvaluator`` (``entry_cheby31``), each captured into
+CUDA graphs and replayed bit-equal to its eager call on two
+content-distinct inputs, its first result unchanged by later calls, with
+eager and replayed ``ms``, ``device_ms``, ``capture_s``, ``op_traces``, the
+launches each graph holds, replays and peak memory eager and captured;
+the Chebyshev's graphs replayed bit-equal after its ring's LRU table cache
+is flooded, and decoded against its float64 interpolant.  The ``dbfv`` and
+``dckks`` phases also print the ``OpProfiler`` table of one extra, untimed
+call of the PIR cloud step and of ``layer1``.  Every phase prints one JSON
+line (``jit`` one a program); any failure, a failed capture included,
+exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
-full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, and
+full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, jit, and
 ``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
 device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
@@ -84,8 +93,8 @@ if not torch.cuda.is_available():
 import numpy as np
 
 from lattigo_tpu_torch import _build, native
-from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_ckks, entry_dbfv_pir,
-                                     entry_dckks_sigmoid, fold)
+from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_cheby31, entry_ckks,
+                                     entry_dbfv_pir, entry_dckks_sigmoid, fold)
 from lattigo_tpu_torch.examples import bfv_riding, dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
@@ -93,6 +102,7 @@ from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.ops.ring import Ring
 from lattigo_tpu_torch.parallel import launch, scaling
+from lattigo_tpu_torch.tjit import copy_tree, tjit, tree_flatten
 from lattigo_tpu_torch.tools.timing import event_ms, graph_ms
 from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils.precision import precision_stats
@@ -109,6 +119,7 @@ INT32_MULS_PER_S = 67e12 / 4
 # the high word of v*w', 3 for that word times q
 MULS_PER_BUTTERFLY = 10
 MIN_PREC = 12.0  # median bits of a CKKS decoding (tests/test_ckks.py)
+JIT_BITS = 15.0  # median bits of the degree-31 Chebyshev against its float64 interpolant
 # median bits of the dCKKS checks (tests/test_dckks.py, tests/test_ckks.py)
 DCKKS_BITS = dict(path=7.0, cks=11.0, rkg_naive=9.0, conjugate=10.0, refresh=10.0,
                   encrypt_from_crp=11.0, evaluate_poly_fast=10.0, evaluate_cheby_fast=7.0)
@@ -474,14 +485,23 @@ def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
 MEASURED: dict = {}  # (moduli, shape, limbs, inverse, route) -> its measure_calls row
 
 
-def measure_calls(calls, label: str) -> list[dict]:
+def measure_calls(calls, label: str, largest_only: bool = False) -> list[dict]:
     """Every distinct NTT call of a forward: its kernel against the plain
     version, timed, with the other kernels' times on the same shape.  A
     shape an earlier phase of this run measured on a ring of the same
-    moduli is not measured again (``measured_by`` names that phase)."""
+    moduli is not measured again (``measured_by`` names that phase).
+    ``largest_only``: time only the largest shape of each kernel and
+    direction (the one ``kernel_rows`` reports); hold the others against the
+    plain version untimed."""
     shapes = []
     seen = set()
     key_of = lambda c: (tuple(c[0].moduli), *c[1:])
+    largest = {}
+    for c in calls:
+        if c[4] in ROUTE_KERNEL:
+            k = (c[4], c[3])
+            if k not in largest or np.prod(c[1]) > np.prod(largest[k][1]):
+                largest[k] = c
     for i, call in enumerate(calls):
         ring, shape, limbs, inverse, route = call
         key = key_of(call)
@@ -493,6 +513,14 @@ def measure_calls(calls, label: str) -> list[dict]:
             shapes.append(dict(MEASURED[key], calls=n_calls))
             continue
         name = ROUTE_KERNEL[route]
+        if largest_only and key_of(largest[(route, inverse)]) != key:
+            x = rand_input(ring, shape[:-2], limbs, 1 if inverse else 2, seed=1000 + i)
+            err = check_equal(name, ring, x, limbs, inverse)
+            if err != 0:
+                fail(f"{label}: {name} disagrees with its plain version at {shape} limbs {limbs}")
+            shapes.append(dict(kernel=name, shape=list(shape), limbs=list(limbs), inverse=inverse,
+                               max_abs_err=err, calls=n_calls, measured_by=label, timed=False))
+            continue
         r = measure_shape(name, ring, shape, limbs, inverse, seed=1000 + i)
         r.update(kernel=name, calls=n_calls, measured_by=label,
                  other_kernels=cross_time(name, ring, shape, limbs, inverse, seed=2000 + i))
@@ -1371,6 +1399,215 @@ def phase_examples() -> dict:
                 counts=counts, shapes=measure_calls(calls, label))
 
 
+def _leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def _trees_equal(a, b) -> bool:
+    """Equal structure, equal static leaves, tensors equal bit for bit."""
+    (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
+    return da == db and len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def run_jit(label: str, eager, compiled, args_a: tuple, args_b: tuple, reps: int = 5) -> dict:
+    """One compiled program against its eager function: the first call
+    (warm-up + capture) timed as ``capture_s``, with the launches it made
+    (each graph holds half: the warm-up made the other half) and the
+    transforms it gave each kernel; a replay on the content-distinct
+    ``args_b`` (no launch may reach a wrapper); both results and a second
+    replay on ``args_a`` equal to the eager calls bit for bit, and the first
+    result unchanged by the later calls.  Peak device memory of the eager
+    call, of the first call and of a replay (above what was allocated
+    before each); ``ms`` (one call between CUDA events) eager and replayed,
+    ``device_ms`` of the eager call (CUDA graph); ``copy_in_ms``: the time
+    to copy every tensor of ``args_a`` into buffers, which a call of one
+    program does before its replay."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = []
+    calls = record_calls(lambda: out.append(compiled(*args_a)))
+    capture_s = time.perf_counter() - t0
+    first = read_counts()
+    peak_capture = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    out_a = out[0]
+    snap = copy_tree(out_a)
+    if any(v % 2 for v in first.values()):
+        fail(f"jit {label}: the first call made an odd number of launches {first}")
+    captured = {k: v // 2 for k, v in first.items()}
+
+    reset_counts()
+    out_b = compiled(*args_b)
+    torch.cuda.synchronize()
+    if sum(read_counts().values()):
+        fail(f"jit {label}: a replay reached a kernel wrapper: {read_counts()}")
+
+    torch.cuda.reset_peak_memory_stats()
+    base_e = torch.cuda.memory_allocated()
+    reset_counts()
+    eager_a = eager(*args_a)
+    torch.cuda.synchronize()
+    eager_counts = read_counts()
+    peak_eager = torch.cuda.max_memory_allocated() - base_e
+    eager_b = eager(*args_b)
+    torch.cuda.reset_peak_memory_stats()
+    base_r = torch.cuda.memory_allocated()
+    out_a2 = compiled(*args_a)
+    torch.cuda.synchronize()
+    peak_replay = torch.cuda.max_memory_allocated() - base_r
+    for name, got, want in (("first call", out_a, eager_a), ("replay on other inputs", out_b,
+                            eager_b), ("second replay", out_a2, eager_a)):
+        if not _trees_equal(got, want):
+            fail(f"jit {label}: the {name} differs from the eager call")
+    if not _trees_equal(out_a, snap):
+        fail(f"jit {label}: a later call changed the first call's result")
+    if any(x is y for x, y in zip(_leaves(out_a), _leaves(out_a2)) if isinstance(x, torch.Tensor)):
+        fail(f"jit {label}: two calls returned the same tensor")
+    del eager_b, out_b, out_a2, snap
+    ms_eager = event_ms(lambda: eager(*args_a), reps=reps, warmup=1)
+    ms_replay = event_ms(lambda: compiled(*args_a), reps=reps, warmup=1)
+    tensors = [t for t in _leaves(args_a) if isinstance(t, torch.Tensor)]
+    bufs = [torch.empty_like(t) for t in tensors]
+    copy_in_ms = event_ms(lambda: [b.copy_(t) for b, t in zip(bufs, tensors)], reps=reps)
+    del bufs
+    fields = dict(label=label, capture_s=capture_s, ms_eager=ms_eager, ms=ms_replay,
+                  copy_in_ms=copy_in_ms, copy_in_bytes=sum(t.numel() * 8 for t in tensors),
+                  device_ms=device_time(lambda: eager(*args_a), count=HEAVY_GRAPH_CALLS),
+                  first_call_counts=first, counts=captured, eager_counts=eager_counts,
+                  peak_eager_bytes=peak_eager, peak_capture_bytes=peak_capture,
+                  peak_replay_bytes=peak_replay, held_after_capture_bytes=held)
+    return fields, calls, out_a
+
+
+def phase_jit():
+    """``tjit`` programs (captured CUDA graphs) against their eager calls:
+    ``tjit(forward)`` at PN12QP109, the PIR cloud step at PN13QP218 x 8
+    rows, the PSI AND chain at PN13QP218 (3 parties), and bench.py's
+    degree-31 Chebyshev at PN15QP880 through ``JitEvaluator``
+    (``entry_cheby31``), each through ``run_jit`` and decrypted: the
+    product and the retrieved row exact, the intersection exact, the
+    Chebyshev at JIT_BITS median bits or more against its float64
+    interpolant.  For the Chebyshev also evaluations per second over
+    content-distinct ciphertexts, the ring's LRU cache flooded with
+    OP_CACHE_SIZE + 16 new scalar columns after a fresh evaluator's
+    capture, then its replay equal to eager (the programs keep the tables
+    they read alive), the programs
+    (``op_traces``) and replays, and the time to copy its relinearization
+    key into a ``mul_relin`` program's buffer.  Every
+    kernel held against its plain version at every shape the first calls
+    gave it (timed: the largest of each kernel and direction).  Yields one
+    result a program, as it is done."""
+
+    def finish(fields, calls, kernels, **more) -> dict:
+        for name in kernels:
+            if fields["counts"][name + "_fwd"] + fields["counts"][name + "_inv"] == 0:
+                fail(f"jit {fields['label']}: no graph holds a launch of {name}")
+        torch.cuda.synchronize()
+        return dict(fields, kernels=kernels, shapes=measure_calls(
+            calls, fields["label"], largest_only=True), **more)
+
+    forward, (ct0, ct1, swk) = entry(device=DEV)
+    params = bfv.default_params(bfv.PN12QP109)
+    compiled = tjit(forward)
+    r, calls, res = run_jit("PN12QP109 forward", forward, compiled, (ct0, ct1, swk),
+                            (ct1, ct0, swk))
+    enc = bfv.Encoder(params, device=DEV)
+    m = np.arange(params.n, dtype=np.uint64) % params.t
+    got = enc.decode_uint(bfv.Decryptor(params, forward.secret_key, device=DEV).decrypt(res))
+    if not (got == m * m[::-1] % np.uint64(params.t)).all():
+        fail("jit: the replayed forward does not decrypt to m * m[::-1] mod t")
+    yield finish(r, calls, ("ntt_tile", "ntt_mxu"), op_traces=compiled.trace_count(),
+                 replays=compiled.replays)
+
+    pir = entry_dbfv_pir(device=DEV)
+    pk, rlk, rot_keys = pir.ckg(), pir.rkg(), pir.rtg()
+    query, rows, masks = pir.encrypt(pk)
+    rolled = bfv.Ciphertext([torch.roll(p, 1, 0) for p in rows.value])
+    r, calls, res = run_jit("PN13QP218 PIR cloud", pir.cloud, pir.compiled_cloud,
+                            (query, rows, masks, rlk, rot_keys),
+                            (query, rolled, masks, rlk, rot_keys))
+    sk_req = pir.requester_key()
+    if not (pir.decrypt(pir.cks(res, sk_req), sk_req) == pir.rows[pir.wanted]).all():
+        fail(f"jit: the replayed PIR cloud does not retrieve row {pir.wanted}")
+    yield finish(r, calls, ("ntt_tile", "ntt_mxu"), op_traces=pir.compiled_cloud.trace_count(),
+                 replays=pir.compiled_cloud.replays)
+    del pir, pk, rlk, rot_keys, query, rows, masks, rolled
+
+    psi = dbfv_psi.Psi(3, 13, DEV)
+    pk, rlk = psi.keygen()
+    cts = psi.encrypt(pk)
+    r, calls, res = run_jit("PN13QP218 PSI AND chain", psi.and_chain, psi.compiled_and_chain,
+                            (cts, rlk), (cts[::-1], rlk))
+    if not (psi.decrypt(*psi.pcks(res)) == psi.want()).all():
+        fail("jit: the replayed AND chain does not decrypt to the intersection")
+    yield finish(r, calls, ("ntt_tile", "ntt_mxu"),
+                 op_traces=psi.compiled_and_chain.trace_count(),
+                 replays=psi.compiled_and_chain.replays)
+    del psi, pk, rlk, cts
+
+    ch = entry_cheby31(device=DEV)
+    sk, pk, rlk = ch.keygen()
+    cts = ch.variants(ch.encrypt(pk), 4)
+    eager_ev = ckks.Evaluator(ch.params, device=DEV)
+    ring = ch.ctx.ring_q
+    r, calls, res = run_jit("PN15QP880 Chebyshev", lambda c: ch.evaluate(c, rlk, ev=eager_ev),
+                            lambda c: ch.evaluate(c, rlk), (cts[0],), (cts[1],), reps=3)
+    jops = ch.ev._jops
+    got = ch.decrypt(res, sk)
+    if got.shape != (ch.params.slots,) or not np.isfinite(got).all():
+        fail(f"jit: the Chebyshev decodes to {got.shape} with non-finite values")
+    bits = dict(vs_chebyshev_float64=median_bits(got, ch.want(exact=False)),
+                vs_sigmoid=median_bits(got, ch.want()))
+    if bits["vs_chebyshev_float64"] < JIT_BITS:
+        fail(f"jit: the Chebyshev has {bits['vs_chebyshev_float64']:.2f} median bits against "
+             f"its interpolant, < {JIT_BITS}")
+    replays0 = {k: f.replays for k, f in jops.items()}  # a replay: one op call
+    t0 = time.perf_counter()
+    for c in cts[1:]:
+        ch.evaluate(c, rlk)
+    torch.cuda.synchronize()
+    per_eval = (time.perf_counter() - t0) / (len(cts) - 1)
+    k0, k1 = rlk.evakey.key0, rlk.evakey.key1
+    b0, b1 = torch.empty_like(k0), torch.empty_like(k1)
+    key_copy_ms = event_ms(lambda: (b0.copy_(k0), b1.copy_(k1)), reps=20)
+    del b0, b1
+
+    # The flood: programs must keep alive the tables they read.  The
+    # warm-ups above ran on side streams, whose freed blocks the caching
+    # allocator hands to no allocation on this stream; so an eager
+    # evaluation builds the tables again on this stream, a fresh
+    # evaluator's programs capture them, and the flood evicts them.
+    ring._op_cache.clear()
+    want = ch.evaluate(cts[0], rlk, ev=eager_ev)
+    fresh = ckks.JitEvaluator(ch.params, device=DEV)
+    ch.evaluate(cts[0], rlk, ev=fresh)
+    held = {id(t) for f in fresh._jops.values() for p in f._cache.values() for t in p.tables}
+    before = {id(v) for v in ring._op_cache.values()}
+    for i in range(ring_mod.OP_CACHE_SIZE + 16):
+        ring.mul_scalar(cts[0].value[0], 10**9 + i)
+    after = {id(v) for v in ring._op_cache.values()}
+    evicted = sum(1 for k in held if k in before and k not in after)
+    if evicted == 0:
+        fail("jit: the flood evicted no table a program reads")
+    if not _trees_equal(ch.evaluate(cts[0], rlk, ev=fresh), want):
+        fail("jit: after the LRU flood the replayed Chebyshev differs from eager")
+    del fresh, want
+    yield finish(
+        r, calls, ("ntt_mxu", "ntt_passes"), op_traces=ch.op_traces(),
+        programs={k: f.trace_count() for k, f in jops.items()},
+        replays=sum(f.replays for f in jops.values()),
+        replays_an_evaluation={k: (f.replays - replays0[k]) // (len(cts) - 1)
+                               for k, f in jops.items()},
+        evals_per_s=1 / per_eval, slots_per_s=ch.params.slots / per_eval, level=res.level,
+        precision_bits=bits, key_bytes=2 * k0.numel() * 8, key_copy_ms=key_copy_ms,
+        flood=dict(keys=ring_mod.OP_CACHE_SIZE + 16, held_tables=len(held),
+                   evicted_held_tables=evicted))
+
+
 def phase_profile(make, label: str) -> None:
     """One ``forward`` under torch.profiler: wall time, the device's busy
     time (sum of kernel self times), its idle share, and the kernels that
@@ -1426,7 +1663,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,small,main_path,full_width,ckks,bfv15,dbfv,"
-                            "rotate,dckks,parallel,examples")
+                            "rotate,dckks,parallel,examples,jit")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
@@ -1499,6 +1736,11 @@ def main() -> None:
         res = phase_examples()
         emit("examples", **res)
         summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        torch.cuda.empty_cache()
+    if "jit" in phases:
+        for res in phase_jit():
+            emit("jit", **{k: v for k, v in res.items() if k != "kernels"})
+            summary += kernel_rows(res, res["kernels"])
         torch.cuda.empty_cache()
     if "profile" in phases:
         phase_profile(lambda: entry(device=DEV), "PN12QP109")

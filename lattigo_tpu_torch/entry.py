@@ -6,8 +6,16 @@ retrieval over threshold BFV of examples/dbfv_pir.py
 (examples/dbfv/pir/pir.go), and an N-party encrypted two-layer sigmoid
 network over threshold CKKS with a collective refresh between the layers
 (examples/ckks_sigmoid.py's Chebyshev sigmoid on tests/test_dckks.py's
-protocol sequence), and the multi-rank dry run of every threshold protocol
-on a party mesh with the cross-rank NTT (``__graft_entry__.dryrun_multichip``)."""
+protocol sequence), bench.py's config #4 (a degree-31 Chebyshev sigmoid at
+PN15QP880 through the per-op compiled ``JitEvaluator``), and the multi-rank
+dry run of every threshold protocol on a party mesh with the cross-rank NTT
+(``__graft_entry__.dryrun_multichip``).
+
+``entry()`` returns the plain ``forward``, as ``__graft_entry__.entry()``
+does: its caller compiles it (``tjit(forward)``).  The PIR cloud step
+runs as one ``tjit`` program (a captured CUDA graph) on CUDA and eagerly on
+the CPU, as examples/dbfv_pir.py does; the Chebyshev's ops run through
+``JitEvaluator``, as bench.py's do."""
 
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ from lattigo_tpu_torch.parallel import launch
 from lattigo_tpu_torch.parallel import protocols as pp
 from lattigo_tpu_torch.parallel.cross_ntt import ntt_four_step, sharded_ntt
 from lattigo_tpu_torch.parallel.mesh import make_mesh
+from lattigo_tpu_torch.tjit import tjit
 from lattigo_tpu_torch.utils import serialization as ser
+from lattigo_tpu_torch.utils.precision import precision_stats
 from lattigo_tpu_torch.utils.prng import CRPGenerator
 
 
@@ -137,7 +147,9 @@ class DbfvPir:
     key) -> ``cloud`` (select, ``inner_sum``, multiply with the rows, sum
     over the rows, relinearize; one batched pass over ``[n_rows, L, N]``
     stacks) -> ``cks`` (collective key switch to the requester's key) ->
-    ``decrypt``."""
+    ``decrypt``.  ``compiled_cloud`` is ``cloud`` as one ``tjit`` program,
+    which :meth:`run` calls on CUDA (examples/dbfv_pir.py:189-191); on the
+    CPU it calls ``cloud``."""
 
     wanted = 2  # the row the requester retrieves
 
@@ -160,6 +172,7 @@ class DbfvPir:
         self.ev = bfv.Evaluator(params, device=device)
         rng = np.random.default_rng(0)
         self.rows = [rng.integers(0, 256, params.n, dtype=np.uint64) for _ in range(n_rows)]
+        self.compiled_cloud = tjit(self.cloud)
 
     def ckg(self) -> bfv.PublicKey:
         ckg = dbfv.CKGProtocol(self.params, device=self.device)
@@ -234,7 +247,8 @@ class DbfvPir:
         """Every stage in order; returns the retrieved row."""
         pk, rlk, rot_keys = self.ckg(), self.rkg(), self.rtg()
         query, rows, masks = self.encrypt(pk)
-        result = self.cloud(query, rows, masks, rlk, rot_keys)
+        cloud = self.compiled_cloud if self.device.type == "cuda" else self.cloud
+        result = cloud(query, rows, masks, rlk, rot_keys)
         sk_req = self.requester_key()
         return self.decrypt(self.cks(result, sk_req), sk_req)
 
@@ -417,6 +431,100 @@ def entry_dckks_sigmoid(device=None, params_idx: int | ckks.Parameters = ckks.PN
     means the GPU and raises when there is none."""
     params = params_idx if isinstance(params_idx, ckks.Parameters) else ckks.default_params(params_idx)
     return DckksSigmoid(params, device, n_parties)
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Cheby31:
+    """The stages of bench.py's config #4 (``bench_ckks_cheby31``,
+    bench.py:413-472): a degree-31 Chebyshev interpolant of the sigmoid on
+    [-8, 8] evaluated by ``evaluate_cheby_fast`` through the per-op
+    compiled ``JitEvaluator``.  :meth:`run` drives them in order:
+
+    ``keygen`` (a sparse secret of Hamming weight 128, its public and
+    relinearization keys) -> ``encrypt`` (uniform slots in [-8, 8] from
+    ``np.random.default_rng(3)``) -> ``variants`` (content-distinct
+    copies of one signature) -> ``evaluate`` -> ``decrypt``."""
+
+    def __init__(self, params, device):
+        self.params = params
+        self.ctx = ckks.get_context(params, device)
+        self.device = device = self.ctx.device
+        self.enc = ckks.Encoder(params, device=device)
+        self.ev = ckks.JitEvaluator(params, device=device)
+        self.cheby = ckks.approximate(sigmoid, -8, 8, 31)
+        self.x = np.random.default_rng(3).uniform(-8, 8, params.slots)
+
+    def keygen(self) -> tuple[ckks.SecretKey, ckks.PublicKey, ckks.EvaluationKey]:
+        kgen = ckks.KeyGenerator(self.params, device=self.device, seed=3)
+        sk, pk = kgen.gen_key_pair_sparse(hw=128)
+        return sk, pk, kgen.gen_relin_key(sk)
+
+    def encrypt(self, pk: ckks.PublicKey) -> ckks.Ciphertext:
+        encryptor = ckks.Encryptor(self.params, pk=pk, device=self.device, seed=3)
+        return encryptor.encrypt(self.enc.encode(self.x.astype(np.complex128)))
+
+    @staticmethod
+    def variants(ct: ckks.Ciphertext, n: int) -> list[ckks.Ciphertext]:
+        """``n`` content-distinct ciphertexts of ``ct``'s signature, each poly
+        rolled by i along its coefficients (bench.py's
+        ``rolled_ct_variants``); the first is ``ct``'s content."""
+        return [ckks.Ciphertext([torch.roll(p, i, -1) for p in ct.value], ct.scale)
+                for i in range(n)]
+
+    def evaluate(self, ct: ckks.Ciphertext, rlk: ckks.EvaluationKey, ev=None) -> ckks.Ciphertext:
+        """The interpolant at ``ct`` through ``ev`` (the ``JitEvaluator`` by
+        default)."""
+        return ckks.evaluate_cheby_fast(self.ev if ev is None else ev, ct, self.cheby, rlk)
+
+    def decrypt(self, ct: ckks.Ciphertext, sk: ckks.SecretKey) -> np.ndarray:
+        return self.enc.decode(ckks.Decryptor(self.params, sk, device=self.device).decrypt(ct)).real
+
+    def want(self, exact: bool = True) -> np.ndarray:
+        """The sigmoid at the slots (``exact``), or the interpolant in
+        float64."""
+        return 1 / (1 + np.exp(-self.x)) if exact else cheby_float64(self.cheby, self.x)
+
+    def op_traces(self) -> int:
+        """Programs the evaluator holds, over every op (bench.py:462)."""
+        return sum(f.trace_count() for f in self.ev._jops.values())
+
+    def run(self, n_variants: int = 4) -> dict:
+        """Every stage; returns bench.py's numbers: ``capture_s`` (the first
+        evaluation, every program's warm-up and capture included: the twin
+        of ``compile_s``), ``evals_per_s`` over the other ``n_variants - 1``
+        content-distinct ciphertexts, ``op_traces``, and the first result's
+        median bits against the interpolant and the sigmoid."""
+        sk, pk, rlk = self.keygen()
+        cts = self.variants(self.encrypt(pk), n_variants)
+        t0 = time.perf_counter()
+        out = self.evaluate(cts[0], rlk)
+        _synchronize(self.device)
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for ct in cts[1:]:
+            self.evaluate(ct, rlk)
+        _synchronize(self.device)
+        per = (time.perf_counter() - t0) / (n_variants - 1)
+        got = self.decrypt(out, sk)
+        return dict(capture_s=capture_s, evals_per_s=1 / per, slots_per_s=self.params.slots / per,
+                    op_traces=self.op_traces(), level=out.level,
+                    bits_vs_chebyshev=precision_stats(got, self.want(exact=False)).median_bits,
+                    bits_vs_sigmoid=precision_stats(got, self.want()).median_bits)
+
+
+def entry_cheby31(device=None, params_idx: int | ckks.Parameters = ckks.PN15QP880) -> Cheby31:
+    """bench.py's config #4 at a reference-shipped CKKS set (PN15QP880:
+    N = 32768, Q = 50 + 17 x 40 bit, P = 3 x 50, by default) or at the
+    ``ckks.Parameters`` given as ``params_idx`` (it takes 7 levels);
+    returns its stages (:class:`Cheby31`).  ``device=None`` means the GPU
+    and raises when there is none."""
+    params = (params_idx if isinstance(params_idx, ckks.Parameters)
+              else ckks.default_params(params_idx))
+    return Cheby31(params, device)
 
 
 def _digest(*tensors) -> str:

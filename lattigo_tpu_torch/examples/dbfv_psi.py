@@ -4,9 +4,11 @@ encrypt binary set vectors -> slot-wise AND (multiplication chain) -> PCKS
 to an output key -> decrypt.
 
 The twin of ``examples/dbfv_psi.py``.  Defaults: 3 parties at the
-reference's PN13QP218 (N = 8192); below log N = 13 the small test set.  The
-AND chain runs eagerly (the JAX package's ``tjit`` has no twin).  Run (on
-the GPU; ``cpu`` as a third argument runs it on the CPU):
+reference's PN13QP218 (N = 8192); below log N = 13 the small test set.  On
+CUDA the AND chain runs as one ``tjit`` program (a captured graph), as the
+JAX example compiles it on an accelerator; on the CPU it runs eagerly, as
+the JAX example does there.  Run (on the GPU; ``cpu`` as a third argument
+runs it on the CPU):
 
     python -m lattigo_tpu_torch.examples.dbfv_psi [n_parties] [log_n] [cpu]
 """
@@ -20,13 +22,16 @@ import numpy as np
 
 from lattigo_tpu_torch.entry import fold
 from lattigo_tpu_torch.models import bfv, dbfv
+from lattigo_tpu_torch.tjit import tjit
 from lattigo_tpu_torch.utils.prng import CRPGenerator
 
 
 class Psi:
     """The example's stages; :meth:`run` drives them in order:
     ``keygen`` -> ``encrypt`` -> ``and_chain`` -> ``pcks`` -> ``decrypt``.
-    ``ev`` is the evaluator the AND chain calls (wrap it to profile it)."""
+    ``ev`` is the evaluator the AND chain calls (wrap it to profile it);
+    ``compiled_and_chain`` is ``and_chain`` as one ``tjit`` program, which
+    :meth:`run` calls on CUDA."""
 
     def __init__(self, n_parties: int = 3, log_n: int = 13, device=None):
         if log_n >= 13:
@@ -46,6 +51,7 @@ class Psi:
         self.ev = bfv.Evaluator(params, device=device)
         rng = np.random.default_rng(7)  # each party's set as a binary slot vector
         self.sets = [rng.integers(0, 2, params.n).astype(np.uint64) for _ in range(n_parties)]
+        self.compiled_and_chain = tjit(self.and_chain)
 
     def keygen(self) -> tuple[bfv.PublicKey, bfv.EvaluationKey]:
         """The collective public key, then the two-round relinearization key."""
@@ -87,7 +93,8 @@ class Psi:
     def run(self) -> np.ndarray:
         """Every stage in order; returns the decrypted intersection vector."""
         pk, rlk = self.keygen()
-        return self.decrypt(*self.pcks(self.and_chain(self.encrypt(pk), rlk)))
+        and_chain = self.compiled_and_chain if self.device.type == "cuda" else self.and_chain
+        return self.decrypt(*self.pcks(and_chain(self.encrypt(pk), rlk)))
 
 
 def main(n_parties: int = 3, log_n: int = 13, device=None) -> bool:
@@ -97,7 +104,8 @@ def main(n_parties: int = 3, log_n: int = 13, device=None) -> bool:
     pk, rlk = psi.keygen()
     print(f"[keygen]  {n_parties} parties, {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    acc = psi.and_chain(psi.encrypt(pk), rlk)
+    and_chain = psi.compiled_and_chain if psi.device.type == "cuda" else psi.and_chain
+    acc = and_chain(psi.encrypt(pk), rlk)
     print(f"[AND]     {n_parties} sets intersected, {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     got = psi.decrypt(*psi.pcks(acc))

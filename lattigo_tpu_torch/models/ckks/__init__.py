@@ -6,8 +6,8 @@ conjugation keys), encryption, decryption, and every method of the
 evaluator (linear and constant ops, rescaling, multiplication with
 relinearization, key switching, rotations, conjugation, hoisted
 rotations), baby-step/giant-step and Chebyshev polynomial evaluation, and
-the algorithms (powers, Goldschmidt inverse).  ``JitEvaluator`` has no
-port.
+the algorithms (powers, Goldschmidt inverse), and ``JitEvaluator``, every
+op a ``tjit`` program (on CUDA a captured graph).
 """
 
 from lattigo_tpu_torch.models.ckks import algorithms
@@ -16,7 +16,7 @@ from lattigo_tpu_torch.models.ckks.context import CKKSContext, get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, Plaintext
 from lattigo_tpu_torch.models.ckks.encoder import Encoder
 from lattigo_tpu_torch.models.ckks.encryptor import Decryptor, Encryptor
-from lattigo_tpu_torch.models.ckks.evaluator import Evaluator
+from lattigo_tpu_torch.models.ckks.evaluator import Evaluator, JitEvaluator
 from lattigo_tpu_torch.models.ckks.keygen import EvaluationKey, KeyGenerator, RotationKeys
 from lattigo_tpu_torch.models.ckks.params import (
     PN12QP109,
@@ -38,7 +38,7 @@ from lattigo_tpu_torch.models.ckks.polynomial_evaluation import (
 
 __all__ = [
     "CKKSContext", "ChebyshevInterpolation", "Ciphertext", "Decryptor", "Encoder", "Encryptor",
-    "EvaluationKey", "Evaluator", "KeyGenerator", "Parameters", "Plaintext",
+    "EvaluationKey", "Evaluator", "JitEvaluator", "KeyGenerator", "Parameters", "Plaintext",
     "PublicKey", "RotationKeys", "SecretKey", "SwitchingKey", "default_params",
     "get_context", "PN12QP109", "PN13QP218", "PN14QP438", "PN15QP880", "PN16QP1761",
     "algorithms", "approximate", "evaluate_cheby_eco", "evaluate_cheby_fast",

@@ -16,6 +16,8 @@ does; at PN16QP1761 with 8 stacked ciphertexts that is 72 rows of 38 limbs.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -23,6 +25,7 @@ from lattigo_tpu_torch.models.ckks.context import get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, drop_to_level, polys_of
 from lattigo_tpu_torch.ops import galois, modred, number_theory as nt, scaling
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.tjit import GraphPool, tjit
 
 
 def _hamming(x: int) -> int:
@@ -365,3 +368,39 @@ class Evaluator:
             c0 = rq.add(galois.permute_ntt(ct.value[0], gal_el), self._mod_down(lvl, a0))
             out[k] = Ciphertext([c0, self._mod_down(lvl, a1)], ct.scale)
         return out
+
+
+class JitEvaluator(Evaluator):
+    """Per-op compiled evaluator: every primitive runs as its own ``tjit``
+    program (on CUDA a captured graph), cached per (level, scale, shape)
+    signature; the twin of ``lattigo_tpu/models/ckks/evaluator.py``'s
+    ``JitEvaluator``.  A deep circuit (a degree-31 Chebyshev, bench.py's
+    config #4) replays one program per distinct (op, level, scale)
+    combination instead of issuing every launch of every op from the host.
+    The programs of one evaluator share one CUDA graph memory pool: they
+    replay one at a time on one stream, and each replay's outputs are
+    cloned before the next (``tjit.GraphPool``).
+    """
+
+    _JIT_OPS = (
+        "add", "sub", "neg", "reduce", "add_const", "mult_by_const",
+        "mult_by_const_and_add", "scale_up", "mul_by_pow2", "rescale",
+        "rescale_many", "mul_relin", "relinearize", "switch_keys",
+        "rotate_columns", "conjugate",
+    )
+
+    def __init__(self, params, device=None):
+        super().__init__(params, device)
+        self._jops: dict = {}
+        self._pool = GraphPool()
+
+    def __getattribute__(self, name):
+        if name in JitEvaluator._JIT_OPS:
+            jops = object.__getattribute__(self, "_jops")
+            fn = jops.get(name)
+            if fn is None:
+                base = functools.partial(getattr(Evaluator, name), self)
+                fn = tjit(base, pool=object.__getattribute__(self, "_pool"))
+                jops[name] = fn
+            return fn
+        return object.__getattribute__(self, name)

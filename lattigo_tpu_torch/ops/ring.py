@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch import device as _device
+from lattigo_tpu_torch import tjit
 from lattigo_tpu_torch.ops import modred, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.parallel import cross_ntt
@@ -127,8 +128,9 @@ class Ring:
         self.u1_ = _tbl([b[1] for b in self.bred], Lx1, dev)
         self.qinv_ = _tbl(self.qinv, Lx1, dev)
 
-        # device tables the NTT kernels build at first use, keyed by them
-        self.kernel_cache: dict = {}
+        # device tables the NTT kernels build at first use, keyed by them;
+        # a tjit entry being built keeps every table it reads alive
+        self.kernel_cache: dict = tjit.TableCache()
         # per-limb scalar columns, rotation twists and index tables, built at
         # first use so that repeated calls copy nothing from the host
         self._op_cache: OrderedDict = OrderedDict()
@@ -403,15 +405,17 @@ class Ring:
 
     def _cached(self, key, build):
         """The table under ``key`` in the ring's LRU cache of at most
-        ``OP_CACHE_SIZE`` entries, built by ``build()`` when missing."""
+        ``OP_CACHE_SIZE`` entries, built by ``build()`` when missing.  A
+        tjit entry being built keeps the table alive after its eviction
+        (``tjit.note_table``): its graph reads the table's memory."""
         cache = self._op_cache
         if key in cache:
             cache.move_to_end(key)
-            return cache[key]
+            return tjit.note_table(cache[key])
         cache[key] = value = build()
         if len(cache) > OP_CACHE_SIZE:
             cache.popitem(last=False)
-        return value
+        return tjit.note_table(value)
 
     def _scalar_tbl(self, a, kind: str, scalar: int) -> torch.Tensor:
         """The ``[lvl+1, 1]`` column of ``scalar`` for ``kind`` (``"mul"``:

@@ -10,6 +10,8 @@ importable module), and its arguments and result picklable host values (no
 CUDA tensors).  If any rank raises, or dies, the world is torn down and
 ``run`` raises with that rank's traceback.  Ranks write nothing to stdout.
 
+``device_type=None`` means CUDA and raises, before any rank is spawned,
+where there is no GPU (``device.resolve``); ``"cpu"`` gives CPU ranks.
 On a CUDA world rank r runs on ``cuda:(r % device_count)``.  The backend is
 the caller's choice and is never switched: ``"nccl"`` needs one card a rank
 and raises otherwise; ``"gloo"`` stages CUDA tensors through the host.
@@ -27,6 +29,8 @@ import traceback
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from lattigo_tpu_torch import device as _device
 
 TIMEOUT_S = 900  # a collective, or a whole run, that takes longer fails
 
@@ -78,7 +82,9 @@ class World:
     On a CUDA world, build the kernels (``_build.build()``) before making
     it, so that the ranks do not each run ``nvcc``."""
 
-    def __init__(self, size: int, backend: str = "gloo", device_type: str = "cpu"):
+    def __init__(self, size: int, backend: str = "gloo", device_type: str | None = None):
+        if device_type is None:
+            device_type = _device.resolve(None).type
         check_backend(size, backend, device_type)
         self.size, self.backend, self.device_type = size, backend, device_type
         ctx = mp.get_context("spawn")
@@ -153,7 +159,7 @@ class World:
         self.close()
 
 
-def run(size: int, fn, *args, backend: str = "gloo", device_type: str = "cpu") -> list:
+def run(size: int, fn, *args, backend: str = "gloo", device_type: str | None = None) -> list:
     """``fn(*args)`` on every rank of a new world of ``size``; the results
     in rank order (see :class:`World`)."""
     with World(size, backend, device_type) as world:

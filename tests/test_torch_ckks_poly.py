@@ -5,9 +5,11 @@ Keys and ciphertexts are made by the port and carried across as uint64
 arrays (lattigo_tpu_torch.convert); the same function then runs in both
 packages on the same ciphertext and relinearization key, and the outputs
 must be equal bit for bit (integers, tolerance 0), with equal ``scale``
-(compared exactly, as floats) and level.  The JAX side runs through its
-per-op compiled ``JitEvaluator``, which computes what ``Evaluator`` computes
-and compiles each op once per level instead of each primitive.  Decryption
+(compared exactly, as floats) and level; the port's ``JitEvaluator`` gives
+the same outputs, with as many programs per op as the JAX one has traces.
+The JAX side runs through its per-op compiled ``JitEvaluator``, which
+computes what ``Evaluator`` computes and compiles each op once per level
+instead of each primitive.  Decryption
 meets tests/test_ckks.py's budgets (median bits: 10 for ``power`` and
 ``evaluate_poly``, 7 for ``evaluate_cheby``, 6 for ``inverse``).  The set
 is tests/test_ckks.py's (log N = 8, Q = 45 + 3 x 32 bits)."""
@@ -84,7 +86,8 @@ def world():
         return jckks.Ciphertext([ju.from_u64(p) for p in polys], scale)
 
     return dict(rlk=rlk, jrlk=jrlk, enc=enc, ev=tckks.Evaluator(TP, device=CPU),
-                jev=jckks.JitEvaluator(JP), dec=tckks.Decryptor(TP, sk, device=CPU),
+                jev=jckks.JitEvaluator(JP), tjev=tckks.JitEvaluator(TP, device=CPU), tjit_ran=set(),
+                dec=tckks.Decryptor(TP, sk, device=CPU),
                 values=values, cts=cts, jcts={k: to_jax(c) for k, c in cts.items()}, jax_out={})
 
 
@@ -116,6 +119,36 @@ def test_bit_equal_to_the_jax_package(world, name):
         np.testing.assert_array_equal(a, ju.to_u64(jax.tree.map(np.asarray, b)))
     slots = world["enc"].decode(world["dec"].decrypt(got))
     assert precision_stats(slots, expect(world["values"][kind])).median_bits >= budget
+
+
+def jit_result(world, name):
+    """The circuit through the port's ``JitEvaluator``, recorded as run."""
+    fn, kind = CASES[name][:2]
+    world["tjit_ran"].add(name)
+    return fn(tckks, world["tjev"], world["cts"][kind], world["rlk"])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_jit_evaluator_equals_the_jax_jit_evaluator(world, name):
+    """The port's ``JitEvaluator`` (every op a ``tjit`` program) gives the
+    JAX ``JitEvaluator``'s output bit for bit."""
+    got, want = jit_result(world, name), jax_result(world, name)
+    assert got.scale == want.scale and got.level == want.level
+    polys, _ = convert.ckks_ciphertext_to_numpy(got)
+    for a, b in zip(polys, want.value, strict=True):
+        np.testing.assert_array_equal(a, ju.to_u64(jax.tree.map(np.asarray, b)))
+
+
+def test_jit_evaluator_trace_counts_equal_the_jax_ones(world):
+    """After every circuit through both evaluators, each op holds as many
+    programs (one per signature) as the JAX op holds traces."""
+    for name in CASES:
+        jax_result(world, name)
+        if name not in world["tjit_ran"]:
+            jit_result(world, name)
+    got = {k: f.trace_count() for k, f in world["tjev"]._jops.items()}
+    assert got == {k: f.trace_count() for k, f in world["jev"]._jops.items()}
+    assert got["mul_relin"] >= 3
 
 
 @pytest.fixture(scope="module")

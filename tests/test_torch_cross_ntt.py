@@ -84,7 +84,7 @@ def _sharded_bfv_rank():
 
 @pytest.fixture(scope="module")
 def world():
-    with World(RANKS) as w:
+    with World(RANKS, device_type="cpu") as w:
         yield w
 
 

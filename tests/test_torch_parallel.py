@@ -68,7 +68,7 @@ def _raise_on_rank_1():
 
 @pytest.fixture(scope="module")
 def world():
-    with World(RANKS) as w:
+    with World(RANKS, device_type="cpu") as w:
         yield w
 
 
@@ -141,7 +141,21 @@ def test_backend_is_checked_before_any_rank_starts():
     with pytest.raises(ValueError, match="needs CUDA"):
         launch.World(RANKS, backend="nccl", device_type="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        launch.World(RANKS, backend="mpi")
+        launch.World(RANKS, backend="mpi", device_type="cpu")
+
+
+def test_no_device_means_the_card(monkeypatch):
+    """``device_type=None`` means CUDA: without a GPU the world raises
+    before any rank is spawned, and nothing falls back to CPU ranks."""
+    import multiprocessing
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = set(multiprocessing.active_children())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.World(RANKS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run(RANKS, _raise_on_rank_1)
+    assert set(multiprocessing.active_children()) == before
 
 
 def test_a_rank_that_raises_fails_the_run(world):

@@ -150,7 +150,7 @@ def _ckg_rank(sks, crp, seed, jax_draws):
 
 @pytest.fixture(scope="module")
 def world():
-    with World(N_PARTIES) as w:
+    with World(N_PARTIES, device_type="cpu") as w:
         yield w
 
 
