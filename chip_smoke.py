@@ -38,7 +38,15 @@ the scheme step inside ``sharded_ntt``), and ``weak_scaling_mul`` on the
 NCCL world of one at CKKS PN16QP1761 with 8 ciphertexts and on the 4-rank
 gloo world at CKKS PN12QP109; and the example twins (``examples``): ride
 hailing at log N = 12 and the 3-party set intersection at PN13QP218, with
-the ``OpProfiler`` table of its AND chain; and the compiled programs
+the ``OpProfiler`` table of its AND chain, the CKKS sigmoid at log N = 14
+and the 3-party PIR at PN13QP218 through its compiled cloud step; the twin
+of bench.py (``bench``: ``lattigo_tpu_torch.bench`` with every config but
+#4, which the ``jit`` phase drives: the NTT at ``[1024, 2, 8192]`` and
+``[2, 8192]``, BFV at PN13QP218, the per-op table and the 17 dBFV phases
+and the 8-party pipeline at PN12QP109, CKKS at PN14QP438 and PN16QP1761,
+each a captured chain; every metric present, two replays of a keyed share
+program different, the stacked parties' noise distinct, and the new kernel
+shapes held against the plain versions and timed); and the compiled programs
 (``jit``): ``tjit(forward)`` at PN12QP109, the PIR cloud step at PN13QP218,
 the PSI AND chain at PN13QP218 and bench.py's degree-31 Chebyshev at
 PN15QP880 through ``JitEvaluator`` (``entry_cheby31``), each captured into
@@ -54,7 +62,7 @@ line (``jit`` one a program); any failure, a failed capture included,
 exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
-full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, jit, and
+full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, bench, jit, and
 ``profile``, which is not in the default run:
 one traced ``forward`` per configuration, device time by kernel name and the
 device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
@@ -74,6 +82,7 @@ graph, replayed between two events, divided by 20: the device's time alone).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -93,9 +102,10 @@ if not torch.cuda.is_available():
 import numpy as np
 
 from lattigo_tpu_torch import _build, native
+from lattigo_tpu_torch import bench as port_bench
 from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_cheby31, entry_ckks,
-                                     entry_dbfv_pir, entry_dckks_sigmoid, fold)
-from lattigo_tpu_torch.examples import bfv_riding, dbfv_psi
+                                     entry_dbfv_pir, entry_dckks_sigmoid, fold, rolled_variants)
+from lattigo_tpu_torch.examples import bfv_riding, ckks_sigmoid, dbfv_pir, dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
@@ -124,6 +134,10 @@ JIT_BITS = 15.0  # median bits of the degree-31 Chebyshev against its float64 in
 DCKKS_BITS = dict(path=7.0, cks=11.0, rkg_naive=9.0, conjugate=10.0, refresh=10.0,
                   encrypt_from_crp=11.0, evaluate_poly_fast=10.0, evaluate_cheby_fast=7.0)
 CKKS_BATCH = 8  # ciphertext pairs stacked at PN16QP1761
+SIGMOID_BITS = 7.0  # median bits of examples/ckks_sigmoid.py's check
+# configs of the bench twin the bench phase leaves out: the jit phase drives
+# entry.Cheby31 (config #4) already
+BENCH_SKIP = ("cheby31",)
 REPS = 20
 BASELINE = None  # the library of --baseline-passes, when given
 BASELINE_ROW = None  # the library of --baseline-row, when given
@@ -163,13 +177,6 @@ def emit(phase: str, **fields) -> None:
 def fail(msg: str) -> None:
     sys.stderr.write(f"chip_smoke: FAILED: {msg}\n")
     sys.exit(1)
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -319,7 +326,7 @@ def median_bits(got, want) -> float:
 
 
 def phase_device() -> str:
-    line = smi_line()
+    line = port_bench.smi_line()
     emit("device", gpu=line, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
     return line
@@ -1353,11 +1360,14 @@ def phase_parallel() -> dict:
 
 def phase_examples() -> dict:
     """The example twins on the card: ride hailing at log N = 12 (2048
-    taxis), every distance exact; the 3-party set intersection at
-    PN13QP218 stage by stage (keygen, encrypt, AND chain, PCKS, decrypt),
-    the intersection exact, and the ``OpProfiler`` table of one extra,
-    untimed AND chain.  Seconds and launches of each; every kernel held
-    against its plain version at every shape they give it."""
+    taxis), every distance exact; the CKKS sigmoid at log N = 14 (8192
+    slots) above SIGMOID_BITS median bits; the 3-party PIR at PN13QP218
+    through ``examples.dbfv_pir`` (its cloud step one compiled program), the
+    row exact; the 3-party set intersection at PN13QP218 stage by stage
+    (keygen, encrypt, AND chain, PCKS, decrypt), the intersection exact,
+    and the ``OpProfiler`` table of one extra, untimed AND chain.  Seconds
+    and launches of each; every kernel held against its plain version at
+    every shape they give it."""
     label = "examples"
     calls = []
     reset_counts()
@@ -1367,6 +1377,18 @@ def phase_examples() -> dict:
     ride["counts"] = read_counts()
     if not ride["ok"] or ride["n_taxis"] != 2048:
         fail(f"examples: ride hailing at log N = 12 is not exact ({ride['n_taxis']} taxis)")
+    reset_counts()
+    calls += record_calls(lambda: out.append(ckks_sigmoid.sigmoid(14, DEV)))
+    sig = {k: v for k, v in out[-1].items() if k not in ("values", "got")}
+    sig["counts"] = read_counts()
+    if not sig["bits"] > SIGMOID_BITS or sig["slots"] != 8192:
+        fail(f"examples: the CKKS sigmoid at log N = 14 has {sig['bits']:.2f} median bits")
+    reset_counts()
+    calls += record_calls(lambda: out.append(dbfv_pir.retrieve(3, 13, DEV)))
+    pir = out[-1]
+    pir["counts"] = read_counts()
+    if not pir["ok"] or pir["n"] != 8192 or pir["compiled_programs"] != 1:
+        fail(f"examples: the PIR at PN13QP218 is not exact through its compiled cloud {pir}")
 
     psi = dbfv_psi.Psi(3, 13, DEV)
     seconds, stage_counts = {}, {}
@@ -1389,11 +1411,12 @@ def phase_examples() -> dict:
     if got.shape != (psi.params.n,) or not (got == want).all():
         fail("examples: the set intersection at PN13QP218 is not exact")
     and_ops = profile_ops(psi, lambda: psi.and_chain(cts, rlk))
-    counts = _sum_counts({"ride": ride["counts"], **stage_counts})
+    counts = _sum_counts({"ride": ride["counts"], "sigmoid": sig["counts"], "pir": pir["counts"],
+                          **stage_counts})
     for name in ("ntt_tile", "ntt_mxu"):
         if counts[name + "_fwd"] + counts[name + "_inv"] == 0:
             fail(f"examples: the examples never launched {name}")
-    return dict(label=label, ride=ride,
+    return dict(label=label, ride=ride, sigmoid=sig, pir=pir,
                 psi=dict(n=psi.params.n, parties=3, elements=int(want.sum()), setup_s=seconds,
                          stage_counts=stage_counts, and_chain_ops=and_ops),
                 counts=counts, shapes=measure_calls(calls, label))
@@ -1551,7 +1574,7 @@ def phase_jit():
 
     ch = entry_cheby31(device=DEV)
     sk, pk, rlk = ch.keygen()
-    cts = ch.variants(ch.encrypt(pk), 4)
+    cts = rolled_variants(ch.encrypt(pk), 4)
     eager_ev = ckks.Evaluator(ch.params, device=DEV)
     ring = ch.ctx.ring_q
     r, calls, res = run_jit("PN15QP880 Chebyshev", lambda c: ch.evaluate(c, rlk, ev=eager_ev),
@@ -1606,6 +1629,78 @@ def phase_jit():
         precision_bits=bits, key_bytes=2 * k0.numel() * 8, key_copy_ms=key_copy_ms,
         flood=dict(keys=ring_mod.OP_CACHE_SIZE + 16, held_tables=len(held),
                    evicted_held_tables=evicted))
+
+
+def _find_call(calls, moduli, shape, inverse, route):
+    for c in calls:
+        if (tuple(c[0].moduli), c[1], c[3], c[4]) == (tuple(moduli), tuple(shape), inverse, route):
+            return c
+    fail(f"bench: no {route} transform of {list(shape)} (inverse {inverse}) was made")
+
+
+def phase_bench() -> dict:
+    """The twin of bench.py (``lattigo_tpu_torch.bench``) on the card with
+    every config but BENCH_SKIP: each config must emit its metrics (bench.py's
+    names) as finite positive numbers; its own checks ran (the headline bit
+    for bit against the plain schedule and through its inverse; BFV exact;
+    CKKS at 12 median bits; two replays of a keyed CKG share program differ
+    and still decrypt exactly; the 8-party stacked shares' noise differs
+    party by party, its PCKS and Refresh exact).  Every kernel held against
+    its plain version at every shape the run gave it (the largest of each
+    kernel and direction timed), and the new shapes timed for the kernels
+    line: the headline ``[1024, 2, 8192]`` (four-step, both directions), the
+    single-ciphertext ``[2, 8192]`` (row) and the largest PN16QP1761
+    single-ciphertext transforms (long-row)."""
+    label = "bench"
+    recs = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    reset_counts()
+    with contextlib.redirect_stdout(sys.stderr):  # the headline's bare line
+        calls = record_calls(lambda: recs.extend(port_bench.run(DEV, skip=BENCH_SKIP)))
+    run_s = time.time() - t0
+    counts = read_counts()
+    want = [m for k, ms in port_bench.METRICS.items() if k not in BENCH_SKIP for m in ms]
+    got = [r["metric"] for r in recs]
+    if got != want:  # each value was checked finite and positive by the run
+        fail(f"bench: the configs emitted {got}, not {want}")
+    by = {r["metric"]: r for r in recs}
+    fresh = by["dbfv_ckg_gen_pn12qp109"]["fresh_noise"]
+    if not (fresh["replays_differ"] and fresh["replayed_key_decrypts"]):
+        fail(f"bench: keyed replays {fresh}")
+    party = by["dbfv_8party_ckg_pcks_refresh_pn12qp109"]
+    if party["party_noise_distinct_pairs"] != 28 or not party["pcks_and_refresh_exact"]:
+        fail(f"bench: the 8-party shares {party}")
+    for name in KERNELS:
+        if counts[name + "_fwd"] == 0:
+            fail(f"bench: the bench never launched {name}")
+    shapes = measure_calls(calls, label, largest_only=True)
+    pn16 = ckks.default_params(ckks.PN16QP1761)
+    passes = [c for c in calls if c[4] == "passes" and c[0].n == pn16.n]
+    named = [_find_call(calls, port_bench.GOLDEN_60, (1024, 2, 8192), False, "mxu"),
+             _find_call(calls, port_bench.GOLDEN_60, (1024, 2, 8192), True, "mxu"),
+             _find_call(calls, port_bench.GOLDEN_60, (2, 8192), False, "tile")]
+    for inverse in (False, True):
+        mine = [c for c in passes if c[3] == inverse]
+        if not mine:
+            fail(f"bench: no PN16QP1761 transform on the long-row kernel (inverse {inverse})")
+        named.append(max(mine, key=lambda c: int(np.prod(c[1]))))
+    rows = []
+    for i, (ring, shape, limbs, inverse, route) in enumerate(named):
+        name = ROUTE_KERNEL[route]
+        key = (tuple(ring.moduli), shape, limbs, inverse, route)
+        if key not in MEASURED:
+            r = measure_shape(name, ring, shape, limbs, inverse, seed=3000 + i)
+            if r["max_abs_err"] != 0:
+                fail(f"bench: {name} disagrees with its plain version at {shape}")
+            r.update(kernel=name, measured_by=label,
+                     other_kernels=cross_time(name, ring, shape, limbs, inverse, seed=4000 + i))
+            MEASURED[key] = r
+            torch.cuda.empty_cache()
+        rows.append(dict(MEASURED[key], calls=sum(1 for c in calls if c[0] is ring
+                                                   and c[1:] == (shape, limbs, inverse, route))))
+    return dict(label=label, run_s=run_s, skipped=list(BENCH_SKIP), records=recs,
+                counts=counts, shapes=shapes, named_shapes=rows)
 
 
 def phase_profile(make, label: str) -> None:
@@ -1663,7 +1758,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,small,main_path,full_width,ckks,bfv15,dbfv,"
-                            "rotate,dckks,parallel,examples,jit")
+                            "rotate,dckks,parallel,examples,bench,jit")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
@@ -1736,6 +1831,11 @@ def main() -> None:
         res = phase_examples()
         emit("examples", **res)
         summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        torch.cuda.empty_cache()
+    if "bench" in phases:
+        res = phase_bench()
+        emit("bench", **{k: v for k, v in res.items() if k != "named_shapes"})
+        summary += kernel_rows(dict(res, shapes=res["named_shapes"]), tuple(KERNELS))
         torch.cuda.empty_cache()
     if "jit" in phases:
         for res in phase_jit():

@@ -19,6 +19,7 @@ the CPU, as examples/dbfv_pir.py does; the Chebyshev's ops run through
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
 import time
@@ -134,6 +135,23 @@ def fold(proto, shares):
     for s in shares[1:]:
         acc = proto.aggregate(acc, s)
     return acc
+
+
+def fold_stacked(proto, stacked):
+    """:func:`fold` of party-stacked shares: the share (a tensor, or a tuple
+    of tensors) of a ``gen_share`` call on ``[parties, L_QP, N]`` secrets,
+    party ``i`` at index ``i`` of the leading axis (bench.py's ``fold8``)."""
+    first = stacked[0] if isinstance(stacked, tuple) else stacked
+    party = lambda i: tuple(s[i] for s in stacked) if isinstance(stacked, tuple) else stacked[i]
+    return fold(proto, [party(i) for i in range(first.shape[0])])
+
+
+def rolled_variants(ct, n: int) -> list:
+    """``n`` content-distinct ciphertexts of ``ct``'s signature (BFV or
+    CKKS), each poly rolled by i along its coefficients (bench.py's
+    ``rolled_ct_variants``); the first is ``ct``'s content."""
+    return [dataclasses.replace(ct, value=[torch.roll(p, i, -1) for p in ct.value])
+            for i in range(n)]
 
 
 class DbfvPir:
@@ -446,7 +464,7 @@ class Cheby31:
 
     ``keygen`` (a sparse secret of Hamming weight 128, its public and
     relinearization keys) -> ``encrypt`` (uniform slots in [-8, 8] from
-    ``np.random.default_rng(3)``) -> ``variants`` (content-distinct
+    ``np.random.default_rng(3)``) -> ``rolled_variants`` (content-distinct
     copies of one signature) -> ``evaluate`` -> ``decrypt``."""
 
     def __init__(self, params, device):
@@ -466,14 +484,6 @@ class Cheby31:
     def encrypt(self, pk: ckks.PublicKey) -> ckks.Ciphertext:
         encryptor = ckks.Encryptor(self.params, pk=pk, device=self.device, seed=3)
         return encryptor.encrypt(self.enc.encode(self.x.astype(np.complex128)))
-
-    @staticmethod
-    def variants(ct: ckks.Ciphertext, n: int) -> list[ckks.Ciphertext]:
-        """``n`` content-distinct ciphertexts of ``ct``'s signature, each poly
-        rolled by i along its coefficients (bench.py's
-        ``rolled_ct_variants``); the first is ``ct``'s content."""
-        return [ckks.Ciphertext([torch.roll(p, i, -1) for p in ct.value], ct.scale)
-                for i in range(n)]
 
     def evaluate(self, ct: ckks.Ciphertext, rlk: ckks.EvaluationKey, ev=None) -> ckks.Ciphertext:
         """The interpolant at ``ct`` through ``ev`` (the ``JitEvaluator`` by
@@ -499,7 +509,7 @@ class Cheby31:
         content-distinct ciphertexts, ``op_traces``, and the first result's
         median bits against the interpolant and the sigmoid."""
         sk, pk, rlk = self.keygen()
-        cts = self.variants(self.encrypt(pk), n_variants)
+        cts = rolled_variants(self.encrypt(pk), n_variants)
         t0 = time.perf_counter()
         out = self.evaluate(cts[0], rlk)
         _synchronize(self.device)

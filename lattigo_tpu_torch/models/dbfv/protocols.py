@@ -8,6 +8,10 @@ stacks a pair of planes per block, or a tuple of two such tensors.  Common
 randomness comes from the blake2b CRP stream
 (:mod:`lattigo_tpu_torch.utils.prng`), as dbfv/dbfv.go:70-73.
 
+A secret key may carry leading batch axes (``[parties, L_QP, N]``: several
+parties' shares in one call, as bench.py ``vmap``s share generation over a
+stacked axis); every noise draw then has that batch, one draw a party.
+
 Each protocol draws its noise from one ``torch.Generator`` on its device,
 seeded with ``seed`` (default ``1000 + label``); run over a party group
 (``lattigo_tpu_torch.parallel.protocols``), each party draws from its own
@@ -32,6 +36,11 @@ from lattigo_tpu_torch.models.bfv.keygen import (
 )
 from lattigo_tpu_torch.ops import galois, modred, samplers
 from lattigo_tpu_torch.ops import u64 as u
+
+
+def _batch(sk: torch.Tensor) -> tuple:
+    """The leading batch axes of a secret key (or of a poly made from one)."""
+    return tuple(sk.shape[:-2])
 
 
 class _Protocol:
@@ -59,14 +68,14 @@ class _Protocol:
         finally:
             self.gen = old
 
-    def _gauss_qp_ntt(self, sigma: float | None = None) -> torch.Tensor:
+    def _gauss_qp_ntt(self, sigma: float | None = None, batch=()) -> torch.Tensor:
         ring = self.ctx.ring_qp
         sigma = self.params.sigma if sigma is None else sigma
-        return ring.ntt(samplers.gaussian_poly(self.gen, ring, sigma))
+        return ring.ntt(samplers.gaussian_poly(self.gen, ring, sigma, batch=batch))
 
-    def _ternary_qp_ntt(self, p: float) -> torch.Tensor:
+    def _ternary_qp_ntt(self, p: float, batch=()) -> torch.Tensor:
         ring = self.ctx.ring_qp
-        return ring.ntt(samplers.ternary_poly(self.gen, ring, p, montgomery=True))
+        return ring.ntt(samplers.ternary_poly(self.gen, ring, p, montgomery=True, batch=batch))
 
     def _mod_down(self, x: torch.Tensor) -> torch.Tensor:
         """(x - [x]_P) / P in basis Q for a QP poly ``x``."""
@@ -96,7 +105,8 @@ class CKGProtocol(_Protocol):
 
     def gen_share(self, sk: torch.Tensor, crp: torch.Tensor) -> torch.Tensor:
         """share_i = e_i - sk_i * crp, in QP, NTT domain."""
-        return self.ctx.ring_qp.mul_coeffs_montgomery_and_sub(sk, crp, self._gauss_qp_ntt())
+        return self.ctx.ring_qp.mul_coeffs_montgomery_and_sub(
+            sk, crp, self._gauss_qp_ntt(batch=_batch(sk)))
 
     def aggregate(self, s1, s2):
         return self.ctx.ring_qp.add(s1, s2)
@@ -117,10 +127,11 @@ class CKSProtocol(_Protocol):
         ctx = self.ctx
         rq = ctx.ring_q
         nq = rq.L
-        delta = rq.sub(sk_in[:nq], sk_out[:nq])
+        delta = rq.sub(sk_in[..., :nq, :], sk_out[..., :nq, :])
         share = rq.mul_coeffs_montgomery(rq.ntt(ct.value[1]), delta)
         share = rq.intt(rq.mul_scalar_bigint(share, ctx.ring_p.modulus_bigint))
-        e = samplers.gaussian_poly(self.gen, ctx.ring_qp, self.sigma_smudging)
+        e = samplers.gaussian_poly(self.gen, ctx.ring_qp, self.sigma_smudging,
+                                   batch=_batch(delta))
         share = rq.add(share, e[..., :nq, :])
         return ctx.basis_q_p.mod_down_split_pq(share, e[..., nq:, :])
 
@@ -141,13 +152,14 @@ class PCKSProtocol(_Protocol):
     def gen_share(self, sk: torch.Tensor, pk: PublicKey, ct: bfv.Ciphertext):
         ctx = self.ctx
         rqp, rq = ctx.ring_qp, ctx.ring_q
-        uu = self._ternary_qp_ntt(0.5)
+        batch = _batch(sk)
+        uu = self._ternary_qp_ntt(0.5, batch)
         h0 = rqp.intt(rqp.mul_coeffs_montgomery(uu, pk.pk[0]))
         h1 = rqp.intt(rqp.mul_coeffs_montgomery(uu, pk.pk[1]))
-        h0 = rqp.add(h0, samplers.gaussian_poly(self.gen, rqp, self.sigma_smudging))
-        h1 = rqp.add(h1, samplers.gaussian_poly(self.gen, rqp, self.params.sigma))
+        h0 = rqp.add(h0, samplers.gaussian_poly(self.gen, rqp, self.sigma_smudging, batch=batch))
+        h1 = rqp.add(h1, samplers.gaussian_poly(self.gen, rqp, self.params.sigma, batch=batch))
         s0, s1 = self._mod_down(h0), self._mod_down(h1)
-        tmp = rq.intt(rq.mul_coeffs_montgomery(rq.ntt(ct.value[1]), sk[: rq.L]))
+        tmp = rq.intt(rq.mul_coeffs_montgomery(rq.ntt(ct.value[1]), sk[..., : rq.L, :]))
         return rq.add(s0, tmp), s1
 
     def aggregate(self, s1, s2):
@@ -170,7 +182,7 @@ class RKGProtocol(_Protocol):
         pool = self._sk_pool(sk)
         out = []
         for i in range(self.beta):
-            e = self._add_block_q(self._gauss_qp_ntt(), pool, i)
+            e = self._add_block_q(self._gauss_qp_ntt(batch=_batch(sk)), pool, i)
             out.append(ring.mul_coeffs_montgomery_and_sub(u_eph, crp[i], e))
         return torch.stack(out)
 
@@ -178,10 +190,11 @@ class RKGProtocol(_Protocol):
         """(s_i*round1 + e, s_i*crp + e') (relinkey_gen.go:267-291)."""
         ring = self.ctx.ring_qp
         o0, o1 = [], []
+        batch = _batch(sk)
         for i in range(self.beta):
             t0 = ring.mul_coeffs_montgomery(round1[i], sk)
-            o0.append(ring.add(t0, self._gauss_qp_ntt()))
-            o1.append(ring.mul_coeffs_montgomery_and_add(sk, crp[i], self._gauss_qp_ntt()))
+            o0.append(ring.add(t0, self._gauss_qp_ntt(batch=batch)))
+            o1.append(ring.mul_coeffs_montgomery_and_add(sk, crp[i], self._gauss_qp_ntt(batch=batch)))
         return torch.stack(o0), torch.stack(o1)
 
     def gen_share_round_three(self, round2, u_eph: torch.Tensor, sk: torch.Tensor) -> torch.Tensor:
@@ -189,7 +202,8 @@ class RKGProtocol(_Protocol):
         ring = self.ctx.ring_qp
         diff = ring.sub(u_eph, sk)
         return torch.stack([
-            ring.mul_coeffs_montgomery_and_add(diff, round2[1][i], self._gauss_qp_ntt())
+            ring.mul_coeffs_montgomery_and_add(diff, round2[1][i],
+                                               self._gauss_qp_ntt(batch=_batch(diff)))
             for i in range(self.beta)
         ])
 
@@ -217,11 +231,12 @@ class RKGProtocolNaive(_Protocol):
         round one samples e1 over the e0 slot and leaves h1 noiseless)."""
         ring = self.ctx.ring_qp
         pool = self._sk_pool(sk)
+        batch = _batch(sk)
         o0, o1 = [], []
         for i in range(self.beta):
-            e0 = self._add_block_q(self._gauss_qp_ntt(), pool, i)
-            e1 = self._gauss_qp_ntt()
-            uu = self._ternary_qp_ntt(0.5)
+            e0 = self._add_block_q(self._gauss_qp_ntt(batch=batch), pool, i)
+            e1 = self._gauss_qp_ntt(batch=batch)
+            uu = self._ternary_qp_ntt(0.5, batch)
             o0.append(ring.mul_coeffs_montgomery_and_add(pk.pk[0], uu, e0))
             o1.append(ring.mul_coeffs_montgomery_and_add(pk.pk[1], uu, e1))
         return torch.stack(o0), torch.stack(o1)
@@ -229,15 +244,16 @@ class RKGProtocolNaive(_Protocol):
     def gen_share_round_two(self, round1, sk: torch.Tensor, pk: PublicKey):
         """(sk*r1[0] + cpk0*v + e2, sk*r1[1] + cpk1*v + e3) per block."""
         ring = self.ctx.ring_qp
+        batch = _batch(sk)
         o0, o1 = [], []
         for i in range(self.beta):
             h0 = ring.mul_coeffs_montgomery(round1[0][i], sk)
             h1 = ring.mul_coeffs_montgomery(round1[1][i], sk)
-            vv = self._ternary_qp_ntt(0.5)
+            vv = self._ternary_qp_ntt(0.5, batch)
             h0 = ring.mul_coeffs_montgomery_and_add(pk.pk[0], vv, h0)
             h1 = ring.mul_coeffs_montgomery_and_add(pk.pk[1], vv, h1)
-            o0.append(ring.add(h0, self._gauss_qp_ntt()))
-            o1.append(ring.add(h1, self._gauss_qp_ntt()))
+            o0.append(ring.add(h0, self._gauss_qp_ntt(batch=batch)))
+            o1.append(ring.add(h1, self._gauss_qp_ntt(batch=batch)))
         return torch.stack(o0), torch.stack(o1)
 
     def aggregate(self, s1, s2):
@@ -272,7 +288,7 @@ class RTGProtocol(_Protocol):
         pool = self._sk_pool(galois.permute_ntt(sk, gal_el))
         out = []
         for i in range(self.beta):
-            e = self._add_block_q(self._gauss_qp_ntt(), pool, i)
+            e = self._add_block_q(self._gauss_qp_ntt(batch=_batch(sk)), pool, i)
             out.append(ring.mform(ring.mul_coeffs_montgomery_and_sub(crp[i], sk, e)))
         return torch.stack(out)
 
@@ -300,15 +316,17 @@ class RefreshProtocol(_Protocol):
         ctx = self.ctx
         rq, rqp = ctx.ring_q, ctx.ring_qp
         nq = rq.L
+        batch = _batch(sk)
         # h0 = (P*s*c1 + e)/P + Delta*mask
-        h0 = rq.intt(rq.mul_coeffs_montgomery(sk[:nq], rq.ntt(ct.value[1])))
+        h0 = rq.intt(rq.mul_coeffs_montgomery(sk[..., :nq, :], rq.ntt(ct.value[1])))
         h0 = rq.mul_scalar_bigint(h0, ctx.ring_p.modulus_bigint)
-        e = samplers.gaussian_poly(self.gen, rqp, 3.19, bound=19)
+        e = samplers.gaussian_poly(self.gen, rqp, 3.19, bound=19, batch=batch)
         h0 = ctx.basis_q_p.mod_down_split_pq(rq.add(h0, e[..., :nq, :]), e[..., nq:, :])
         # h1 = (-s*crs + e')/P - Delta*mask
         h1 = rqp.intt(rqp.neg(rqp.mul_coeffs_montgomery(sk, rqp.ntt(crs))))
-        h1 = self._mod_down(rqp.add(h1, samplers.gaussian_poly(self.gen, rqp, 3.19, bound=19)))
-        mask = self._lift(samplers.uniform_poly(self.gen, ctx.ring_t))
+        h1 = self._mod_down(rqp.add(h1, samplers.gaussian_poly(self.gen, rqp, 3.19, bound=19,
+                                                               batch=batch)))
+        mask = self._lift(samplers.uniform_poly(self.gen, ctx.ring_t, batch=batch))
         return rq.add(h0, mask), rq.sub(h1, mask)
 
     def __init__(self, params, **kw):

@@ -24,6 +24,12 @@ captured CUDA graph:
   a reference to it for as long as the graph lives: a table the ring's LRU
   cache evicts stays allocated, so its memory is not reused under the
   graph.
+* A function may draw from ``torch.Generator`` objects (noise).  Each
+  generator a draw reports while an entry is built (:func:`note_generator`,
+  called by the samplers) is registered with the graph before the capture
+  (``CUDAGraph.register_generator_state``), so that every replay draws
+  from where the generator stands, and advances it, as an eager call does:
+  no two replays draw the same noise.  A torch without that method raises.
 * A capture that fails raises; nothing falls back to the eager function.
 
 On the CPU (the caller asked for it, as the tests do) the signature cache
@@ -61,6 +67,24 @@ def note_table(value):
     if _BUILD is not None and value is not None:
         _BUILD[id(value)] = value
     return value
+
+
+def note_generator(gen: torch.Generator) -> None:
+    """While an entry is built, the entry registers ``gen`` with its graph
+    (replays draw fresh values from it).  The samplers call it on every
+    draw."""
+    if _BUILD is not None:
+        _BUILD[id(gen)] = gen
+
+
+def _register_generators(graph, held) -> None:
+    gens = [g for g in held if isinstance(g, torch.Generator)]
+    if gens and not hasattr(graph, "register_generator_state"):
+        raise RuntimeError(f"tjit: torch {torch.__version__} cannot register a generator with a "
+                           "CUDA graph (no CUDAGraph.register_generator_state): its replays "
+                           "would repeat the captured draws")
+    for g in gens:
+        graph.register_generator_state(g)
 
 
 class TableCache(dict):
@@ -133,7 +157,7 @@ def _call(fn, args):
 
 
 def _recording(run):
-    """``(run(), the tables handed out during it)``."""
+    """``(run(), the tables and generators handed out during it)``."""
     global _BUILD
     _BUILD = {}
     try:
@@ -188,6 +212,7 @@ class _Graph:
             result = copy_tree(warm)
             del warm
             self.graph = torch.cuda.CUDAGraph()
+            _register_generators(self.graph, _BUILD.values())
             with torch.cuda.graph(self.graph, pool=None if pool is None else pool.handle()):
                 out = _call(fn, rebuild(self.static_in))
             return result, out

@@ -1,5 +1,7 @@
 """The twins of examples/bfv_riding.py and examples/dbfv_psi.py at
-log N = 8, exact, and ``entry.dryrun_multichip`` (the twin of
+log N = 8, exact; of examples/ckks_sigmoid.py (above its 7 median bits on
+the JAX example's inputs) and examples/dbfv_pir.py (the wanted row
+exact); and ``entry.dryrun_multichip`` (the twin of
 ``__graft_entry__.dryrun_multichip``) on 4 gloo ranks on the CPU at the
 log N = 8 set of tests/test_parallel_protocols.py: every stage decrypts
 exactly, every rank ends with the same keys and ciphertexts, and no kernel
@@ -12,7 +14,7 @@ import pytest
 import torch
 
 from lattigo_tpu_torch.entry import dryrun_multichip
-from lattigo_tpu_torch.examples import bfv_riding, dbfv_psi
+from lattigo_tpu_torch.examples import bfv_riding, ckks_sigmoid, dbfv_pir, dbfv_psi
 from lattigo_tpu_torch.models import bfv
 
 torch.set_num_threads(1)
@@ -46,6 +48,27 @@ def test_psi_is_exact():
 def test_psi_main_returns_ok(capsys):
     assert dbfv_psi.main(2, 8, device="cpu") is True
     assert "correct: True" in capsys.readouterr().out
+
+
+def test_sigmoid_passes_on_the_jax_examples_inputs(capsys):
+    r = ckks_sigmoid.sigmoid(8, device="cpu")
+    # examples/ckks_sigmoid.py's inputs: default_rng(1), 128 slots in [-4, 4]
+    np.testing.assert_array_equal(r["values"], np.random.default_rng(1).uniform(-4, 4, 128))
+    assert r["bits"] > ckks_sigmoid.MIN_BITS and r["levels"] == 4
+    assert ckks_sigmoid.main(8, device="cpu") is True
+    assert "median precision" in capsys.readouterr().out
+
+
+def test_pir_retrieves_the_wanted_row(capsys):
+    r = dbfv_pir.retrieve(3, 8, device="cpu")
+    assert r["ok"] and r["n"] == 256 and r["wanted"] == 2
+    assert r["compiled_programs"] == 0  # the CPU runs the cloud step eagerly
+    # the JAX example's small set below log N = 13
+    p = dbfv_pir.params_for(8)
+    assert ([q.bit_length() for q in p.qi], [q.bit_length() for q in p.pi]) == ([47, 47], [48])
+    assert dbfv_pir.params_for(13).n == 8192
+    assert dbfv_pir.main(2, 8, device="cpu") is True
+    assert "retrieved: True" in capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")

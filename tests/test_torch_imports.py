@@ -42,6 +42,11 @@ def test_the_rule_is_checked_on_the_port():
     assert len(FILES) > 40 and os.path.join(PORT, "parallel", "cross_ntt.py") in FILES
 
 
+def test_the_bench_and_example_twins_are_checked():
+    for rel in ("bench.py", "examples/ckks_sigmoid.py", "examples/dbfv_pir.py"):
+        assert os.path.join(PORT, *rel.split("/")) in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import(path):
     bad = [n for n in imported(path) if _forbidden(n)]

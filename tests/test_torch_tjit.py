@@ -29,7 +29,7 @@ from lattigo_tpu.ops import u64 as ju
 from lattigo_tpu.ops.default_params import default_qi
 from lattigo_tpu_torch import convert
 from lattigo_tpu_torch import tjit as T
-from lattigo_tpu_torch.entry import entry_cheby31, entry_dbfv_pir
+from lattigo_tpu_torch.entry import entry_cheby31, entry_dbfv_pir, rolled_variants
 from lattigo_tpu_torch.examples import dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks
 from lattigo_tpu_torch.ops import galois, ring as ring_mod
@@ -274,7 +274,7 @@ def test_cheby31_jit_equals_eager_and_decodes():
                              log_qi=(45,) + (30,) * 7, log_pi=(45,)).gen_from_log_moduli()
     ch = entry_cheby31(device=CPU, params_idx=params)
     sk, pk, rlk = ch.keygen()
-    cts = ch.variants(ch.encrypt(pk), 2)
+    cts = rolled_variants(ch.encrypt(pk), 2)
     eager = ckks.Evaluator(params, device=CPU)
     outs = [ch.evaluate(c, rlk) for c in cts]
     traces = ch.op_traces()
