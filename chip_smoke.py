@@ -34,7 +34,9 @@ host big-integer one, ``encrypt_from_crp``, ``evaluate_poly_fast`` and
 multi-rank layer (``parallel``): ``entry.dryrun_multichip`` at PN12QP109
 with 4 party ranks over gloo on the one card and with 1 rank over NCCL
 (every threshold protocol on the party mesh, the cross-rank four-step NTT,
-the scheme step inside ``sharded_ntt``), and ``weak_scaling_mul`` on the
+the scheme step inside ``sharded_ntt``), the 3-party PIR at PN13QP218 with
+its rows sharded over the ranks (8 rows in both worlds, 64 on the gloo
+ranks; a ``parallel_pir`` line), and ``weak_scaling_mul`` on the
 NCCL world of one at CKKS PN16QP1761 with 8 ciphertexts and on the 4-rank
 gloo world at CKKS PN12QP109; and the example twins (``examples``): ride
 hailing at log N = 12 and the 3-party set intersection at PN13QP218, with
@@ -1300,9 +1302,64 @@ def phase_dckks() -> dict:
 
 
 # (ranks, backend, CKKS set of weak_scaling_mul, its name, ciphertexts a
-# rank, timed steps)
-WORLDS = ((4, "gloo", ckks.PN12QP109, "PN12QP109", 4, 10),
-          (1, "nccl", ckks.PN16QP1761, "PN16QP1761", 8, 5))
+# rank, timed steps, rows of each sharded PIR at PN13QP218)
+WORLDS = ((4, "gloo", ckks.PN12QP109, "PN12QP109", 4, 10, (8, 64)),
+          (1, "nccl", ckks.PN16QP1761, "PN16QP1761", 8, 5, (8,)))
+PIR_CALLS = 4  # sharded cloud calls on each rank; the first captures its program
+
+
+def pir_inputs(n_rows: int) -> dict:
+    """The 3-party PIR at PN13QP218 with ``n_rows`` rows up to the cloud
+    step (keys, encrypted rows and query, masks) on DEV, and the unsharded
+    compiled cloud on them: the result a sharded cloud must equal, and its
+    replayed ``ms``."""
+    pir = entry_dbfv_pir(device=DEV, n_rows=n_rows)
+    pk, rlk, rot_keys = pir.ckg(), pir.rkg(), pir.rtg()
+    args = (*pir.encrypt(pk), rlk, rot_keys)
+    want = pir.compiled_cloud(*args)
+    ms = event_ms(lambda: pir.compiled_cloud(*args), reps=5, warmup=1)
+    return dict(pir=pir, args=args, want=[u.to_u64(p) for p in want.value], unsharded_ms=ms)
+
+
+def sharded_pir(world, inputs: dict, label: str) -> tuple[dict, list, list]:
+    """``DbfvPir.sharded_cloud`` on ``world``, PIR_CALLS calls a rank: every
+    rank's result bit-equal to the unsharded compiled cloud on the same
+    inputs, the result switched to the requester's key (CKS) decrypting to
+    the wanted row, ntt_tile and ntt_mxu launched on every rank.  Returns
+    its record (by rank: the replayed ``ms`` of the partial program, the
+    fold across the ranks and the relinearization, medians of the calls
+    after the first; the first call's seconds, capture included; peak
+    memory; launches by kernel and stage of the first call; its distinct
+    transforms and their routes), each rank's launches and transforms."""
+    pir = inputs["pir"]
+    t0 = time.time()
+    r = pir.sharded_cloud(world, *inputs["args"], calls=PIR_CALLS)
+    seconds = time.time() - t0
+    for rank, out in enumerate(r["ranks"]):
+        if not all(np.array_equal(a, b) for a, b in zip(out["result"], inputs["want"])):
+            fail(f"{label}: rank {rank}'s sharded cloud differs from the unsharded compiled cloud")
+    sk_req = pir.requester_key()
+    if not (pir.decrypt(pir.cks(r["result"], sk_req), sk_req) == pir.rows[pir.wanted]).all():
+        fail(f"{label}: the sharded cloud does not retrieve row {pir.wanted}")
+    ms = lambda xs: statistics.median(xs) * 1e3
+    ranks = []
+    for rank, out in enumerate(r["ranks"]):
+        s = out["seconds"]
+        c = _sum_counts(out["counts"])
+        for name in ("ntt_tile", "ntt_mxu"):
+            if c[name + "_fwd"] + c[name + "_inv"] == 0:
+                fail(f"{label}: rank {rank} never launched {name}: {out['counts']}")
+        ranks.append(dict(
+            rows=out["rows"], partial_ms=ms(s["partial"][1:]), fold_ms=ms(s["fold"][1:]),
+            relinearize_ms=ms(s["relinearize"][1:]),
+            cloud_ms=ms([sum(v[i] for v in s.values()) for i in range(1, PIR_CALLS)]),
+            first_call_s={k: v[0] for k, v in s.items()}, peak_bytes=out["peak_bytes"],
+            counts=c, stage_counts=out["counts"],
+            transforms=[[list(shape), list(limbs), inverse, route]
+                        for _, shape, limbs, inverse, route in out["transforms"]]))
+    return (dict(rows=pir.n_rows, ranks=len(ranks), calls=PIR_CALLS, sharded_cloud_s=seconds,
+                 unsharded_compiled_ms=inputs["unsharded_ms"], by_rank=ranks),
+            [x["counts"] for x in ranks], [out["transforms"] for out in r["ranks"]])
 
 
 def phase_parallel() -> dict:
@@ -1316,11 +1373,15 @@ def phase_parallel() -> dict:
     and stage; then ``weak_scaling_mul``: at CKKS PN12QP109 on the 4 gloo
     ranks (one card: its throughput, not a scaling number), at CKKS
     PN16QP1761 with 8 ciphertexts on the NCCL rank (the long-row kernel's
-    shapes).  Every kernel is held against its plain version at every shape
-    a rank gave it."""
+    shapes); and between them the 3-party PIR at PN13QP218 with its rows
+    sharded over the world's ranks (``sharded_pir``: 8 rows in both worlds,
+    64 on the gloo ranks), against the unsharded compiled cloud made in this
+    process beforehand.  Every kernel is held against its plain version at
+    every shape a rank gave it."""
     label = "parallel"
-    worlds, scaling_runs, counts, transforms = {}, {}, [], set()
-    for n, backend, idx, name, batch, iters in WORLDS:
+    worlds, scaling_runs, counts, transforms, pir_runs = {}, {}, [], set(), {}
+    pirs = {n_rows: pir_inputs(n_rows) for n_rows in sorted({r for w in WORLDS for r in w[6]})}
+    for n, backend, idx, name, batch, iters, pir_rows in WORLDS:
         t0 = time.time()
         with launch.World(n, backend, "cuda") as world:
             spawn_s = time.time() - t0
@@ -1337,6 +1398,16 @@ def phase_parallel() -> dict:
             worlds[f"{backend}_{n}"] = dict(
                 ok=r["ok"], spawn_s=spawn_s, dryrun_s=dryrun_s, stage_seconds=r["seconds"],
                 stage_counts=r["counts"], rank_counts=per_rank, digests=r["digests"])
+            for n_rows in pir_rows:
+                key = f"{n_rows}_rows_{backend}_{n}"
+                rec, per_rank, ts = sharded_pir(world, pirs[n_rows], f"parallel_pir {key}")
+                if n > 1:
+                    rec["note"] = (f"{n} ranks share one card, gloo staging the fold through the "
+                                   "host: its throughput, not a scaling number")
+                pir_runs[key] = rec
+                counts += per_rank
+                for t in ts:
+                    transforms.update(t)
             t0 = time.time()
             outs = world.run(launch.traced, scaling.weak_scaling_mul, ckks.default_params(idx),
                              None, batch, iters)
@@ -1354,8 +1425,10 @@ def phase_parallel() -> dict:
     total = _sum_counts(dict(enumerate(counts)))  # over ranks
     if total["ntt_passes_fwd"] + total["ntt_passes_inv"] == 0:
         fail("parallel: weak_scaling_mul at PN16QP1761 never launched the long-row kernel")
+    del pirs
     return dict(label=label, worlds=worlds, scaling=scaling_runs, counts=total,
-                shapes=measure_calls(rank_calls(sorted(transforms)), label))
+                shapes=measure_calls(rank_calls(sorted(transforms)), label),
+                pir=dict(label="PN13QP218", parties=3, runs=pir_runs))
 
 
 def phase_examples() -> dict:
@@ -1387,7 +1460,7 @@ def phase_examples() -> dict:
     calls += record_calls(lambda: out.append(dbfv_pir.retrieve(3, 13, DEV)))
     pir = out[-1]
     pir["counts"] = read_counts()
-    if not pir["ok"] or pir["n"] != 8192 or pir["compiled_programs"] != 1:
+    if not pir["ok"] or pir["n"] != 8192 or pir["compiled_programs"] != 1 or pir["ranks"] != 1:
         fail(f"examples: the PIR at PN13QP218 is not exact through its compiled cloud {pir}")
 
     psi = dbfv_psi.Psi(3, 13, DEV)
@@ -1824,7 +1897,9 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "parallel" in phases:
         res = phase_parallel()
+        pir = res.pop("pir")
         emit("parallel", **res)
+        emit("parallel_pir", **pir)
         summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "ntt_passes"))
         torch.cuda.empty_cache()
     if "examples" in phases:

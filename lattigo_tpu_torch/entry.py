@@ -14,12 +14,15 @@ dry run of every threshold protocol on a party mesh with the cross-rank NTT
 ``entry()`` returns the plain ``forward``, as ``__graft_entry__.entry()``
 does: its caller compiles it (``tjit(forward)``).  The PIR cloud step
 runs as one ``tjit`` program (a captured CUDA graph) on CUDA and eagerly on
-the CPU, as examples/dbfv_pir.py does; the Chebyshev's ops run through
-``JitEvaluator``, as bench.py's do."""
+the CPU, as examples/dbfv_pir.py does, or with its rows sharded over the
+ranks of a ``launch.World`` (``DbfvPir.sharded_cloud``), as that example
+shards them over a ``data`` mesh of several devices; the Chebyshev's ops
+run through ``JitEvaluator``, as bench.py's do."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import time
@@ -29,14 +32,14 @@ import torch
 import torch.distributed as dist
 from numpy.polynomial import chebyshev
 
-from lattigo_tpu_torch import _build
+from lattigo_tpu_torch import _build, convert
 from lattigo_tpu_torch import device as _device
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.parallel import launch
 from lattigo_tpu_torch.parallel import protocols as pp
 from lattigo_tpu_torch.parallel.cross_ntt import ntt_four_step, sharded_ntt
-from lattigo_tpu_torch.parallel.mesh import make_mesh
+from lattigo_tpu_torch.parallel.mesh import aggregate_mod, make_mesh, shard_batch
 from lattigo_tpu_torch.tjit import tjit
 from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils.precision import precision_stats
@@ -167,7 +170,10 @@ class DbfvPir:
     stacks) -> ``cks`` (collective key switch to the requester's key) ->
     ``decrypt``.  ``compiled_cloud`` is ``cloud`` as one ``tjit`` program,
     which :meth:`run` calls on CUDA (examples/dbfv_pir.py:189-191); on the
-    CPU it calls ``cloud``."""
+    CPU it calls ``cloud``.  ``cloud`` is ``relinearize(cloud_partial(...))``:
+    :meth:`sharded_cloud` runs ``cloud_partial`` on each rank's share of the
+    rows, folds the partial sums across the ranks and relinearizes
+    (examples/dbfv_pir.py:146-178 with several devices)."""
 
     wanted = 2  # the row the requester retrieves
 
@@ -230,20 +236,47 @@ class DbfvPir:
         masks = torch.stack([self.enc.encode_uint(one_hot(r)).value for r in range(self.n_rows)])
         return query, rows, masks
 
+    def cloud_partial(self, query: bfv.Ciphertext, rows: bfv.Ciphertext, masks: torch.Tensor,
+                      rot_keys: bfv.RotationKeys) -> bfv.Ciphertext:
+        """The sum over the rows given, before relinearization (see
+        :func:`cloud_partial`)."""
+        return cloud_partial(self.ev, query, rows, masks, rot_keys)
+
     def cloud(self, query: bfv.Ciphertext, rows: bfv.Ciphertext, masks: torch.Tensor,
               rlk: bfv.EvaluationKey, rot_keys: bfv.RotationKeys) -> bfv.Ciphertext:
         """sum_r inner_sum(query * mask_r) * row_r, relinearized
         (examples/dbfv_pir.py:159-178)."""
-        ev, rq = self.ev, self.ctx.ring_q
-        R = masks.shape[0]
-        # the query broadcast over the rows, materialised once
-        q = bfv.Ciphertext([p.expand(R, *p.shape).contiguous() for p in query.value])
-        sel = ev.inner_sum(ev.mul(q, bfv.Plaintext(masks)), rot_keys)
-        vals = ev.mul(sel, rows).value  # degree 2, [R, L, N]
-        while R > 1:  # log-depth tree of modular adds over the rows
-            R //= 2
-            vals = [rq.add(v[:R], v[R:]) for v in vals]
-        return ev.relinearize(bfv.Ciphertext([v[0] for v in vals]), rlk)
+        return self.ev.relinearize(self.cloud_partial(query, rows, masks, rot_keys), rlk)
+
+    def sharded_cloud(self, world: launch.World, query: bfv.Ciphertext, rows: bfv.Ciphertext,
+                      masks: torch.Tensor, rlk: bfv.EvaluationKey, rot_keys: bfv.RotationKeys,
+                      calls: int = 1) -> dict:
+        """``cloud`` with the row axis sharded over the ranks of ``world``
+        (one ``data`` group), the twin of examples/dbfv_pir.py:146-178 with
+        several devices: each rank takes its ``n_rows / world.size`` rows and
+        masks, runs ``cloud_partial`` on them (one ``tjit`` program on CUDA,
+        eager on the CPU), folds the partial sums across the ranks
+        (``mesh.aggregate_mod``) and relinearizes, replicated.  The inputs
+        reach the ranks as host arrays, in one ``World.run``; each rank runs
+        the cloud ``calls`` times (on CUDA the first captures its program).
+        Returns ``result`` (the cloud's ciphertext on this object's device;
+        equal on every rank, or this raises) and ``ranks``: by rank, its
+        result (numpy), seconds by stage and call, the first call's kernel
+        launches by stage, peak device memory (None on the CPU), rows and the
+        distinct transforms it made."""
+        if world.device_type != self.device.type:
+            raise ValueError(f"a world on {world.device_type} for a PIR on {self.device.type}")
+        if self.n_rows % world.size:
+            raise ValueError(f"{self.n_rows} rows do not split over {world.size} ranks")
+        ranks = world.run(_pir_cloud_rank, self.params, world.device_type,
+                          convert.ciphertext_to_numpy(query), convert.ciphertext_to_numpy(rows),
+                          convert.poly_to_numpy(masks), convert.switching_key_to_numpy(rlk.evakey[0]),
+                          convert.bfv_rotation_keys_to_numpy(rot_keys), calls)
+        first = ranks[0]["result"]
+        for r, out in enumerate(ranks[1:], 1):
+            if not all(np.array_equal(a, b) for a, b in zip(out["result"], first)):
+                raise RuntimeError(f"sharded_cloud: rank {r}'s result differs from rank 0's")
+        return dict(result=convert.ciphertext_from_numpy(first, self.device), ranks=ranks)
 
     def requester_key(self) -> bfv.SecretKey:
         return bfv.KeyGenerator(self.params, device=self.device, seed=10_000).gen_secret_key()
@@ -261,14 +294,93 @@ class DbfvPir:
         dec = bfv.Decryptor(self.params, sk_req, device=self.device)
         return self.enc.decode_uint(dec.decrypt(switched))
 
-    def run(self) -> np.ndarray:
-        """Every stage in order; returns the retrieved row."""
+    def run(self, world: launch.World | None = None) -> np.ndarray:
+        """Every stage in order; returns the retrieved row.  ``world``: an
+        open ``launch.World`` on this object's device type whose size
+        divides ``n_rows``, over which the cloud step is sharded
+        (:meth:`sharded_cloud`)."""
         pk, rlk, rot_keys = self.ckg(), self.rkg(), self.rtg()
         query, rows, masks = self.encrypt(pk)
-        cloud = self.compiled_cloud if self.device.type == "cuda" else self.cloud
-        result = cloud(query, rows, masks, rlk, rot_keys)
+        if world is not None:
+            result = self.sharded_cloud(world, query, rows, masks, rlk, rot_keys)["result"]
+        else:
+            cloud = self.compiled_cloud if self.device.type == "cuda" else self.cloud
+            result = cloud(query, rows, masks, rlk, rot_keys)
         sk_req = self.requester_key()
         return self.decrypt(self.cks(result, sk_req), sk_req)
+
+
+def cloud_partial(ev: bfv.Evaluator, query: bfv.Ciphertext, rows: bfv.Ciphertext,
+                  masks: torch.Tensor, rot_keys: bfv.RotationKeys) -> bfv.Ciphertext:
+    """sum_r inner_sum(query * mask_r) * row_r over the rows given (stacked
+    on a leading axis of a power-of-two length), the degree-2 ciphertext of
+    one row before relinearization (examples/dbfv_pir.py:159-176)."""
+    rq = ev.ctx.ring_q
+    R = masks.shape[0]
+    # the query broadcast over the rows, materialised once
+    q = bfv.Ciphertext([p.expand(R, *p.shape).contiguous() for p in query.value])
+    sel = ev.inner_sum(ev.mul(q, bfv.Plaintext(masks)), rot_keys)
+    vals = ev.mul(sel, rows).value  # degree 2, [R, L, N]
+    while R > 1:  # log-depth tree of modular adds over the rows
+        R //= 2
+        vals = [rq.add(v[:R], v[R:]) for v in vals]
+    return bfv.Ciphertext([v[0] for v in vals])
+
+
+def _pir_cloud_rank(params, device_type: str, query, rows, masks, rlk, rot_keys,
+                    calls: int) -> dict:
+    """One rank of :meth:`DbfvPir.sharded_cloud`: a ``data`` mesh of every
+    rank, this rank's rows and masks, then ``calls`` times the partial sum,
+    the fold across the ranks and the relinearization.  The arguments are
+    host arrays (``convert``'s formats); see ``sharded_cloud`` for what it
+    returns.  It raises where a later call's result differs from the
+    first's."""
+    mesh = make_mesh(party=1, device_type=device_type)
+    dev, group = mesh.device, mesh.group("data")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ev = bfv.Evaluator(params, device=dev)
+    rq = ev.ctx.ring_q
+    query = convert.ciphertext_from_numpy(query, dev)
+    rows = convert.ciphertext_from_numpy(shard_batch(mesh, rows), dev)
+    masks = convert.poly_from_numpy(shard_batch(mesh, masks), dev)
+    rlk = bfv.EvaluationKey([convert.switching_key_from_numpy(*rlk, dev)])
+    rot_keys = convert.bfv_rotation_keys_from_numpy(*rot_keys, dev)
+    # The fold stays outside the program: gloo stages CUDA tensors through
+    # the host, which a graph capture forbids.  NCCL ranks take the same
+    # path, so both backends run one design.
+    partial = functools.partial(cloud_partial, ev)
+    if cuda:
+        partial = tjit(partial)
+    seconds = {"partial": [], "fold": [], "relinearize": []}
+    counts = {}
+
+    def stage(name, fn):
+        ring_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        seconds[name].append(time.perf_counter() - t0)
+        counts.setdefault(name, ring_mod.launch_counts())
+        return out
+
+    first = None
+    with ring_mod.record_transforms() as made:
+        for _ in range(calls):
+            part = stage("partial", lambda: partial(query, rows, masks, rot_keys))
+            folded = stage("fold", lambda: bfv.Ciphertext(
+                [aggregate_mod(rq, p, group) for p in part.value]))
+            out = stage("relinearize", lambda: ev.relinearize(folded, rlk))
+            if first is None:
+                first = out
+            elif not all(torch.equal(a, b) for a, b in zip(out.value, first.value)):
+                raise RuntimeError(f"sharded_cloud, rank {dist.get_rank()}: a later call's "
+                                   "result differs from the first's")
+    return dict(result=convert.ciphertext_to_numpy(first), seconds=seconds, counts=counts,
+                peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else None,
+                rows=masks.shape[0], transforms=ring_mod.distinct_transforms(made))
 
 
 def entry_dbfv_pir(device=None, params_idx: int | bfv.Parameters = bfv.PN13QP218,

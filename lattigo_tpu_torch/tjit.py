@@ -31,6 +31,11 @@ captured CUDA graph:
   from where the generator stands, and advances it, as an eager call does:
   no two replays draw the same noise.  A torch without that method raises.
 * A capture that fails raises; nothing falls back to the eager function.
+* Python's cyclic garbage collector is paused during a capture
+  (:func:`capture`): an unreachable program left in a reference cycle (an
+  object holding a ``tjit`` of its own method) would otherwise be
+  collected in the middle of another capture, and destroying its graph
+  there invalidates that capture.
 
 On the CPU (the caller asked for it, as the tests do) the signature cache
 is the same, so :meth:`trace_count` counts the same; a call runs ``fn`` on
@@ -48,8 +53,10 @@ dataclasses, flattened field by field where the JAX package's classes have
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import weakref
 
 import torch
@@ -85,6 +92,22 @@ def _register_generators(graph, held) -> None:
                            "would repeat the captured draws")
     for g in gens:
         graph.register_generator_state(g)
+
+
+@contextlib.contextmanager
+def capture(graph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
+    collector paused: a collection during the capture may destroy another,
+    unreachable CUDA graph, which CUDA refuses while a stream
+    captures, and the capture is then invalidated."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class TableCache(dict):
@@ -213,7 +236,7 @@ class _Graph:
             del warm
             self.graph = torch.cuda.CUDAGraph()
             _register_generators(self.graph, _BUILD.values())
-            with torch.cuda.graph(self.graph, pool=None if pool is None else pool.handle()):
+            with capture(self.graph, None if pool is None else pool.handle()):
                 out = _call(fn, rebuild(self.static_in))
             return result, out
 

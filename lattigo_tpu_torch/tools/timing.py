@@ -12,6 +12,8 @@ import statistics
 
 import torch
 
+from lattigo_tpu_torch.tjit import capture
+
 
 def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median over ``reps`` calls of ``fn``, each between two CUDA events,
@@ -38,7 +40,7 @@ def graph_ms(fn, count: int = 20, replays: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):
         for _ in range(count):
             fn()
     graph.replay()

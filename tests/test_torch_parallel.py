@@ -10,10 +10,19 @@ on a world of 2 gloo ranks on the CPU for the whole module.
   protocols' own ``aggregate`` fold, bit for bit (integers, tolerance 0):
   a poly share (CKG) and pair shares (PCKS; RKG round two, stacked).
 * ``weak_scaling_mul`` runs on both ranks at a log N = 8 CKKS set.
+* The PIR cloud step of examples/dbfv_pir.py with its 8 rows sharded over
+  the two ranks (``DbfvPir.sharded_cloud``, 4 rows a rank), on inputs the
+  JAX package makes (3 parties' keys from ``jax.random.key(i)``, the
+  collective keys, the encrypted rows and query, the masks; carried over
+  with ``convert``): every rank's result equals the JAX example's cloud
+  and the port's unsharded ``cloud`` bit for bit, and decrypts after CKS to
+  the wanted row; ``DbfvPir.run(world)`` and the example twin shard over
+  the world; the example's shard rule.
 * A rank that raises makes ``World.run`` raise, with its traceback; an
   unknown or unfit backend raises before any rank starts."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,6 +32,10 @@ from lattigo_tpu.models import bfv as jbfv
 from lattigo_tpu.models import dbfv as jdbfv
 from lattigo_tpu.ops import u64 as ju
 from lattigo_tpu.parallel.mesh import make_mesh as jax_mesh
+from lattigo_tpu.utils.prng import CRPGenerator as JCRP
+from lattigo_tpu_torch import convert
+from lattigo_tpu_torch.entry import DbfvPir
+from lattigo_tpu_torch.examples import dbfv_pir
 from lattigo_tpu_torch.models import bfv, ckks, dbfv
 from lattigo_tpu_torch.ops import u64 as tu
 from lattigo_tpu_torch.parallel import launch, mesh, protocols, scaling
@@ -133,6 +146,173 @@ def test_weak_scaling_mul_runs(world):
     for rates in world.run(_scaling_rank):
         assert sorted(rates) == [1, RANKS]
         assert all(np.isfinite(r) and r > 0 for r in rates.values())
+
+
+PIR_PARTIES, PIR_ROWS = 3, 8
+
+
+@pytest.fixture(scope="module")
+def jax_pir():
+    """examples/dbfv_pir.py:58-142 at the log N = 8 set: the parties' keys,
+    the collective keys, the encrypted rows and query and the masks, as
+    host arrays in ``convert``'s formats; and its cloud step (:159-178, a
+    closure of its ``main``, copied below) on them.  The rows stay
+    unsharded: a sharded eager call computes the same bits, at twice the
+    compile time.  Its relinearization is one ``jax.jit`` call, the rest
+    runs eagerly as the example runs it on the CPU; the bits are the same
+    either way, and the eager relinearization compiles its primitives one
+    by one, several times slower."""
+    params = jbfv.Parameters(**SPEC).gen_from_log_moduli()
+    ctx = jbfv.get_context(params)
+    sks = [jbfv.KeyGenerator(params, rng_key=jax.random.key(i)).gen_secret_key()
+           for i in range(PIR_PARTIES)]
+    crp_gen = JCRP(b"pir", ctx.ring_qp)
+    crp_gen.seed(b"common-seed")
+
+    def stacked_crp(beta):
+        polys = [crp_gen.clock_poly() for _ in range(beta)]
+        return jnp.stack([p[0] for p in polys]), jnp.stack([p[1] for p in polys])
+
+    def fold(proto, shares):
+        acc = shares[0]
+        for sh in shares[1:]:
+            acc = proto.aggregate(acc, sh)
+        return acc
+
+    ckg = jdbfv.CKGProtocol(params)
+    crp = crp_gen.clock_poly()
+    pk = ckg.gen_public_key(fold(ckg, [ckg.gen_share(sk.sk, crp) for sk in sks]), crp)
+    rkg = jdbfv.RKGProtocol(params)
+    crp_rkg = stacked_crp(params.beta)
+    ephs = [rkg.new_ephemeral_key() for _ in sks]
+    r1 = fold(rkg, [rkg.gen_share_round_one(e, sk.sk, crp_rkg) for e, sk in zip(ephs, sks)])
+    r2 = fold(rkg, [rkg.gen_share_round_two(r1, sk.sk, crp_rkg) for sk in sks])
+    r3 = fold(rkg, [rkg.gen_share_round_three(r2, e, sk.sk) for e, sk in zip(ephs, sks)])
+    rlk = rkg.gen_relinearization_key(r2, r3)
+    rtg = jdbfv.RTGProtocol(params)
+    rot_keys = jbfv.RotationKeys()
+    for rot_type, k in [("left", 1 << i) for i in range(params.log_n - 1)] + [("row", 0)]:
+        crp_rot = stacked_crp(params.beta)
+        shares = [rtg.gen_share(rot_type, k, sk.sk, crp_rot) for sk in sks]
+        rtg.finalize(rot_type, k, fold(rtg, shares), crp_rot, rot_keys)
+
+    enc = jbfv.Encoder(params)
+    encryptor = jbfv.Encryptor(params, pk=pk)
+    rng = np.random.default_rng(0)
+    rows = [rng.integers(0, 256, params.n, dtype=np.uint64) for _ in range(PIR_ROWS)]
+    query = np.zeros(params.n, dtype=np.uint64)
+    query[DbfvPir.wanted] = 1
+    ct_rows = [encryptor.encrypt(enc.encode_uint(r)) for r in rows]
+    ct_query = encryptor.encrypt(enc.encode_uint(query))
+    stack = lambda ps: (jnp.stack([p[0] for p in ps]), jnp.stack([p[1] for p in ps]))
+    rows_c0 = stack([ct.value[0] for ct in ct_rows])
+    rows_c1 = stack([ct.value[1] for ct in ct_rows])
+    masks = []
+    for r in range(PIR_ROWS):
+        mask = np.zeros(params.n, dtype=np.uint64)
+        mask[r] = 1
+        masks.append(enc.encode_uint(mask).value)
+    masks_s = stack(masks)
+
+    ev = jbfv.Evaluator(params)
+    relinearize = jax.jit(ev.relinearize)
+
+    def cloud(q_ct, r0, r1, m, rk, rot):
+        R = r0[0].shape[0]
+        bq0 = (jnp.broadcast_to(q_ct.value[0][0][None], r0[0].shape),
+               jnp.broadcast_to(q_ct.value[0][1][None], r0[1].shape))
+        bq1 = (jnp.broadcast_to(q_ct.value[1][0][None], r0[0].shape),
+               jnp.broadcast_to(q_ct.value[1][1][None], r0[1].shape))
+        sel = ev.mul(jbfv.Ciphertext([bq0, bq1]), jbfv.Plaintext(m))
+        sel = ev.inner_sum(sel, rot)
+        part = ev.mul(sel, jbfv.Ciphertext([r0, r1]))  # degree-2 batch [R,...]
+        # log-depth modular tree fold over the row axis
+        vals = part.value
+        while R > 1:
+            half = R // 2
+            vals = [ctx.ring_q.add((v[0][:half], v[1][:half]), (v[0][half:], v[1][half:]))
+                    for v in vals]
+            R = half
+        acc = jbfv.Ciphertext([(v[0][0], v[1][0]) for v in vals])
+        return relinearize(acc, rk)
+
+    result = cloud(ct_query, rows_c0, rows_c1, masks_s, rlk, rot_keys)
+    swk = lambda k: (ju.to_u64(k.key0), ju.to_u64(k.key1))
+    return dict(
+        sks=[ju.to_u64(sk.sk) for sk in sks], rows=rows,
+        query=[ju.to_u64(p) for p in ct_query.value],
+        ct_rows=[ju.to_u64(rows_c0), ju.to_u64(rows_c1)], masks=ju.to_u64(masks_s),
+        rlk=swk(rlk.evakey[0]),
+        rot_keys=({k: swk(v) for k, v in rot_keys.left.items()}, {}, swk(rot_keys.row)),
+        result=[ju.to_u64(p) for p in result.value])
+
+
+@pytest.fixture(scope="module")
+def port_pir(world, jax_pir):
+    """The JAX package's inputs carried into the port (``convert``), the
+    port's unsharded ``cloud`` on them and its cloud sharded over the
+    world's two ranks."""
+    pir = DbfvPir(bfv.Parameters(**SPEC).gen_from_log_moduli(), "cpu", PIR_PARTIES, PIR_ROWS)
+    args = (convert.ciphertext_from_numpy(jax_pir["query"], "cpu"),
+            convert.ciphertext_from_numpy(jax_pir["ct_rows"], "cpu"),
+            convert.poly_from_numpy(jax_pir["masks"], "cpu"),
+            bfv.EvaluationKey([convert.switching_key_from_numpy(*jax_pir["rlk"], "cpu")]),
+            convert.bfv_rotation_keys_from_numpy(*jax_pir["rot_keys"], "cpu"))
+    return dict(pir=pir, unsharded=pir.cloud(*args),
+                sharded=pir.sharded_cloud(world, *args, calls=2))
+
+
+def test_sharded_pir_cloud_equals_the_jax_example(jax_pir, port_pir):
+    for rank in port_pir["sharded"]["ranks"]:
+        assert len(rank["result"]) == len(jax_pir["result"]) == 2
+        for got, want in zip(rank["result"], jax_pir["result"]):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_pir_cloud_equals_the_unsharded_cloud(port_pir):
+    """Bit for bit, on both ranks: every partial sum and the fold across
+    the ranks are canonical residues, so the order of the adds does not
+    show.  Each rank summed 4 rows (its stacked transforms lead with 4)
+    and timed each stage of both calls."""
+    want = convert.ciphertext_to_numpy(port_pir["unsharded"])
+    sharded = port_pir["sharded"]
+    for got, w in zip(convert.ciphertext_to_numpy(sharded["result"]), want):
+        np.testing.assert_array_equal(got, w)
+    for rank in sharded["ranks"]:
+        for got, w in zip(rank["result"], want):
+            np.testing.assert_array_equal(got, w)
+        assert rank["rows"] == PIR_ROWS // RANKS and rank["peak_bytes"] is None
+        assert [len(v) for v in rank["seconds"].values()] == [2, 2, 2]
+        assert {t[1][0] for t in rank["transforms"] if len(t[1]) == 3} >= {PIR_ROWS // RANKS}
+
+
+def test_sharded_pir_retrieves_the_wanted_row(world, jax_pir, port_pir):
+    """The sharded result of the JAX inputs, switched (CKS) from the JAX
+    parties' keys to a requester's; and ``DbfvPir.run(world)`` in the port
+    alone."""
+    pir = port_pir["pir"]
+    pir.sks = [convert.secret_key_from_numpy(sk, "cpu") for sk in jax_pir["sks"]]
+    sk_req = pir.requester_key()
+    got = pir.decrypt(pir.cks(port_pir["sharded"]["result"], sk_req), sk_req)
+    np.testing.assert_array_equal(got, jax_pir["rows"][DbfvPir.wanted])
+    own = DbfvPir(bfv.Parameters(**SPEC).gen_from_log_moduli(), "cpu", PIR_PARTIES, PIR_ROWS)
+    np.testing.assert_array_equal(own.run(world), own.rows[own.wanted])
+    assert own.compiled_cloud.trace_count() == 0  # no unsharded cloud ran
+
+
+@pytest.mark.parametrize("n_rows, count, sharded", [
+    (8, 2, True), (8, 4, True), (8, 8, True), (64, 4, True),
+    (8, 1, False), (8, 3, False), (8, 16, False), (8, 0, False)])
+def test_pir_shard_rule_is_the_jax_examples(n_rows, count, sharded):
+    """examples/dbfv_pir.py:146: several devices that split the rows."""
+    assert dbfv_pir.shards(n_rows, count) is sharded
+
+
+def test_pir_example_shards_over_a_given_world(world, capsys):
+    assert dbfv_pir.main(PIR_PARTIES, 8, device="cpu", world=world) is True
+    assert "[cloud]   row axis sharded over 2 ranks" in capsys.readouterr().out
+    r = dbfv_pir.retrieve(PIR_PARTIES, 8, device="cpu", n_rows=4, world=world)
+    assert r["ok"] and r["ranks"] == RANKS and r["compiled_programs"] == 0
 
 
 def test_backend_is_checked_before_any_rank_starts():

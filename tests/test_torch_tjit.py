@@ -10,10 +10,14 @@ levels and per-op trace counts equal (its circuits with key switches are
 in tests/test_torch_ckks_poly.py, which already compiles them in JAX);
 every op of ``_JIT_OPS`` against the port's eager ``Evaluator``.  A built
 entry keeps the tables it read alive through an LRU flood of the ring's
-cache.  ``OpProfiler`` wraps a ``JitEvaluator``.  The compiled twins (the
+cache.  Python's garbage collector is paused while a graph is captured
+(the capture API faked on the CPU).  ``OpProfiler`` wraps a
+``JitEvaluator``.  The compiled twins (the
 PIR cloud step, the PSI AND chain, the degree-31 Chebyshev of bench.py's
 config #4) equal their eager calls.  Tolerance: none (integers)."""
 
+import contextlib
+import gc
 import math
 
 import jax
@@ -34,6 +38,7 @@ from lattigo_tpu_torch.examples import dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks
 from lattigo_tpu_torch.ops import galois, ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as tu
+from lattigo_tpu_torch.tools import timing
 from lattigo_tpu_torch.utils.precision import precision_stats
 from lattigo_tpu_torch.utils.profiling import OpProfiler
 
@@ -122,6 +127,56 @@ def test_results_are_fresh_tensors():
         assert all(o.data_ptr() not in (a.data_ptr(), b.data_ptr()) for o in out)
         out[0].add_(1)
         assert torch.equal(a, torch.arange(4)) and torch.equal(out[2], a + b)
+
+
+class _FakeCuda:
+    """The CUDA stream, event and graph calls that ``tjit._Graph`` and
+    ``timing.graph_ms`` make, faked for CPU tensors; each capture records
+    whether the garbage collector was enabled inside it."""
+
+    def __init__(self):
+        self.gc_in_capture = []
+
+    def graph(self, graph, pool=None):
+        self.gc_in_capture.append(gc.isenabled())
+        return contextlib.nullcontext()
+
+    def install(self, mp):
+        stream = type("Stream", (), {"wait_stream": lambda self, other: None})
+        event = type("Event", (), {"__init__": lambda self, enable_timing=False: None,
+                                   "record": lambda self: None,
+                                   "synchronize": lambda self: None,
+                                   "elapsed_time": lambda self, other: 1.0})
+        graph = type("CUDAGraph", (), {"replay": lambda self: None})
+        for name, value in (("graph", self.graph), ("CUDAGraph", graph), ("Event", event),
+                            ("Stream", lambda device=None: stream()),
+                            ("current_stream", lambda device=None: stream()),
+                            ("stream", lambda s: contextlib.nullcontext()),
+                            ("device", lambda d: contextlib.nullcontext()),
+                            ("synchronize", lambda device=None: None),
+                            ("empty_cache", lambda: None)):
+            mp.setattr(torch.cuda, name, value)
+
+
+@pytest.mark.parametrize("gc_was_enabled", [True, False])
+def test_captures_pause_the_garbage_collector(monkeypatch, gc_was_enabled):
+    """A collection inside a capture can destroy an unreachable program's
+    graph (a dead reference cycle holding a tjit entry), which invalidates
+    the capture: ``tjit``'s captures and ``graph_ms`` run with the
+    collector paused, and leave it as they found it."""
+    fake = _FakeCuda()
+    fake.install(monkeypatch)
+    enabled = gc.isenabled()
+    (gc.enable if gc_was_enabled else gc.disable)()
+    try:
+        x = torch.arange(4)
+        prog = T._Graph(lambda a: a + 1, lambda ts: (ts[0],), [x], None)
+        assert torch.equal(prog.result, x + 1) and gc.isenabled() is gc_was_enabled
+        assert timing.graph_ms(lambda: x + 1, count=2, replays=1) == 0.5
+        assert gc.isenabled() is gc_was_enabled
+    finally:
+        (gc.enable if enabled else gc.disable)()
+    assert fake.gc_in_capture == [False, False]
 
 
 @pytest.fixture(scope="module")
