@@ -5,9 +5,12 @@ Run it from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``lattigo_tpu_torch/csrc``, holds each kernel
-bit for bit against its plain PyTorch version at the shapes the main paths
-give it (and at a grid of other shapes), times them, then drives the BFV
+It builds the CUDA kernels from ``lattigo_tpu_torch/csrc`` (the three NTT
+kernels and the two modular kernels: the elementwise modular pass
+``modred.cu`` and the fast basis extension ``mod_up.cu``), holds each kernel
+bit for bit against its plain PyTorch version at the shapes (and, for the
+modular kernels, the operand layouts) the main paths give it and at a grid
+of other shapes, times them, then drives the BFV
 main path (keygen, encode, encrypt, multiply + relinearize, decrypt, decode)
 at PN12QP109 and, at full width, at PN14QP438 with 16 stacked ciphertext
 pairs; the small sets of the port's tests (log N = 8, BFV and CKKS) on
@@ -63,11 +66,17 @@ call of the PIR cloud step and of ``layer1``.  Every phase prints one JSON
 line (``jit`` one a program); any failure, a failed capture included,
 exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 
+The ``main_path`` line also counts, from a ``torch.profiler`` trace, the
+CUDA kernels one PN12QP109 ``forward`` launches outside the NTT wrappers
+(the run fails above MAX_OTHER_KERNELS).
+
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
 full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, bench, jit, and
-``profile``, which is not in the default run:
-one traced ``forward`` per configuration, device time by kernel name and the
-device's idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
+``profile``, which is not in the default run: one replay of
+``tjit(forward)`` and of the PIR cloud's graph traced, then the same with
+the modular arithmetic forced to its plain version, and one traced eager
+``forward`` per configuration, device time by kernel name and the device's
+idle share); ``--batch`` sets the PN14QP438 batch; ``--verbose-build`` adds
 ptxas' registers and spills of every kernel to the ``build`` line;
 ``--baseline-passes PATH`` builds an earlier version of
 ``csrc/ntt_passes.cu`` (the C entry of the two-launch kernel: rows, L,
@@ -109,6 +118,7 @@ from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_cheby31, ent
                                      entry_dbfv_pir, entry_dckks_sigmoid, fold, rolled_variants)
 from lattigo_tpu_torch.examples import bfv_riding, ckks_sigmoid, dbfv_pir, dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
+from lattigo_tpu_torch.ops import basis_ext, modred_kernel as mk
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
@@ -148,7 +158,7 @@ SMALL_BFV = dict(log_n=8, t=65537, log_qi=(46, 46), log_pi=(47,), log_qi_mul=(60
 SMALL_CKKS = dict(log_n=8, log_slots=7, scale=float(1 << 32), log_qi=(45, 32, 32, 32),
                   log_pi=(45,))
 
-KERNELS = {
+NTT_KERNELS = {
     "ntt_tile": dict(
         wrapper=tile_ntt.ntt_tile, route="cuda",
         source="lattigo_tpu_torch/csrc/ntt_row.cu",
@@ -165,7 +175,28 @@ KERNELS = {
         replaces="lattigo_tpu/ops/pallas_ntt.py:262",
     ),
 }
+# the modular kernels replace no TPU kernel: under jax.jit XLA fuses these
+# functions into one device pass each; "replaces" names the JAX function
+MODARITH_KERNELS = {
+    "modred": dict(
+        wrapper=mk.modarith, route="cuda", source="lattigo_tpu_torch/csrc/modred.cu",
+        replaces="lattigo_tpu/ops/modred.py:71", note="no TPU kernel: XLA fusion under jax.jit",
+    ),
+    "mod_up": dict(
+        wrapper=basis_ext.mod_up, route="cuda", source="lattigo_tpu_torch/csrc/mod_up.cu",
+        replaces="lattigo_tpu/ops/basis_ext.py:74", note="no TPU kernel: XLA fusion under jax.jit",
+    ),
+}
+KERNELS = {**NTT_KERNELS, **MODARITH_KERNELS}
 ROUTE_KERNEL = {"tile": "ntt_tile", "mxu": "ntt_mxu", "passes": "ntt_passes"}
+# kernel names (substrings of the profiler's) of the NTT wrappers' launches
+NTT_KERNEL_NAMES = ("ntt_row", "ntt_cluster", "rows_mm_kernel", "lanes_mm_kernel")
+MAX_OTHER_KERNELS = 200  # CUDA kernels one PN12QP109 forward may launch outside the NTT
+# 32-bit multiplies of each op of the modular pass (a 64 x 64 -> 128 product
+# is 4 for its high word and 3 for its low word), for its operation bound
+MODRED_MULS = dict(cred=0, add=0, sub=0, neg=0, mred=14, mred_constant=14, mred_add=14,
+                   mred_sub=14, mred_add_lazy=14, mred_diff=14, mform=10, inv_mform=7,
+                   bred_add=7, add_bred=7, bred=31)
 
 
 T0 = time.time()
@@ -247,6 +278,18 @@ def time_turns(fns, reps: int = REPS // 2) -> list[float]:
 
 reset_counts = ring_mod.reset_launch_counts
 read_counts = ring_mod.launch_counts
+
+
+@contextlib.contextmanager
+def all_plain():
+    """Every kernel wrapper on its plain version: the NTT schedules
+    (``Ring.FORCE_KERNEL``) and the modular arithmetic
+    (``modred_kernel.FORCE_PLAIN``)."""
+    ring_mod.FORCE_KERNEL, mk.FORCE_PLAIN = "plain", True
+    try:
+        yield
+    finally:
+        ring_mod.FORCE_KERNEL, mk.FORCE_PLAIN = None, False
 
 
 def plain_of(name: str, ring, x, limbs, inverse):
@@ -412,11 +455,143 @@ def phase_build(verbose: bool) -> None:
 
 def record_calls(run) -> list[tuple]:
     """The NTT calls ``run`` makes, as (ring, shape, limbs, inverse, route):
-    the shapes the main path gives each kernel."""
-    with ring_mod.record_transforms() as calls:
+    the shapes the main path gives each kernel.  The calls of the modular
+    kernels it makes wait in PENDING_MODARITH for the next
+    ``measure_calls``."""
+    with ring_mod.record_transforms() as calls, mk.record() as modarith:
         run()
     torch.cuda.synchronize()
+    PENDING_MODARITH.extend(modarith)
     return calls
+
+
+# ---------------------------------------------------------------------------
+# the modular kernels at the shapes and layouts the paths give them
+# ---------------------------------------------------------------------------
+
+PENDING_MODARITH: list = []  # mk.record() entries not yet checked
+# modarith_key -> (its check_modarith row, the record): the record keeps
+# the tables and params of its key alive, so that no address or id in a
+# key is reused
+MOD_CHECKED: dict = {}
+
+
+def modarith_key(rec) -> tuple:
+    name, layouts, extra = rec
+    if name == "mod_up":
+        mp, sel, centered = extra
+        return name, layouts, id(mp), None if sel is None else tuple(sel), centered
+    return name, layouts, tuple((c.data_ptr(), tuple(c.shape), tuple(c.stride())) for c in extra)
+
+
+def dense(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, step = [], 1
+    for d in reversed(shape):
+        out.append(step)
+        step *= d
+    return tuple(reversed(out))
+
+
+def strided_words(shape, stride, gen, edge) -> torch.Tensor:
+    """Random 64-bit words laid out as ``(shape, stride)``, the ``edge``
+    words first in the storage."""
+    size = 1 + sum((d - 1) * st for d, st in zip(shape, stride)) if all(shape) else 0
+    base = torch.randint(-(1 << 63), (1 << 63) - 1, (max(size, len(edge)),), dtype=torch.int64,
+                         device=DEV, generator=gen)
+    base[: len(edge)] = u.from_u64(np.array(edge, dtype=np.uint64), DEV)
+    return base.as_strided(shape, stride)
+
+
+def distinct_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements of ``t`` (a broadcast dim counts once)."""
+    return 8 * math.prod(d for d, st in zip(t.shape, t.stride()) if st != 0)
+
+
+def modarith_case(rec, seed: int):
+    """A call like ``rec`` on fresh inputs: (kernel call, plain call, the
+    bytes and 32-bit multiplies its bound counts)."""
+    name, layouts, extra = rec
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    if name == "mod_up":
+        mp, sel, centered = extra
+        q = mp.src[0]
+        x = strided_words(*layouts[0], gen, [0, q - 1, 1 << 63, (1 << 64) - 1])
+        ls, n = x.shape[-2], x.shape[-1]
+        k = len(mp.dst) if sel is None else len(sel)
+        cols = distinct_bytes(x) // (8 * ls)
+        out_bytes = 8 * cols * k
+        # y_i and its fixed-point term, then a product a source limb and the
+        # correction for each output, and a reduction every 6 terms
+        muls = cols * (ls * 21 + k * (14 * (ls + 1) + 7 * (ls // 6 + 1)))
+        return (lambda: basis_ext.mod_up(x, mp, sel, centered=centered),
+                lambda: basis_ext.mod_up_plain(x, mp, sel, centered=centered),
+                distinct_bytes(x) + out_bytes + mp.packed_.numel() * 8, muls)
+    _, slots, plain = mk.OPS[name]
+    consts = iter(extra)
+    q = int(u.to_u64(extra[0].reshape(-1)[:1])[0])
+    ops = [next(consts) if slot in mk.SLOTS[3:] else
+           strided_words(*lay, gen, [0, q - 1, 1 << 63, (1 << 64) - 1])
+           for slot, lay in zip(slots, layouts)]
+    numel = math.prod(torch.broadcast_shapes(*(t.shape for t in ops)))
+    return (lambda: mk.modarith(name, *ops), lambda: plain(*ops),
+            sum(distinct_bytes(t) for t in ops) + 8 * numel, MODRED_MULS[name] * numel)
+
+
+def max_abs_err(got, want) -> int:
+    if torch.equal(got, want):
+        return 0
+    diff = u.to_u64(got).astype(object) - u.to_u64(want).astype(object)
+    return int(np.abs(diff).max())
+
+
+def check_modarith(label: str) -> list[dict]:
+    """Every distinct call of the modular kernels that PENDING_MODARITH
+    holds, on fresh random words in the same layouts (the edge words 0,
+    q - 1, 2^63 and 2^64 - 1 among them), held bit for bit against the
+    plain version; the largest of each op (and of mod_up) timed: ``ms``,
+    ``device_ms``, ``plain_ms`` and ``bound_ms`` (the larger of the bytes
+    over the memory rate and the 32-bit multiplies over their rate).  A
+    call an earlier phase checked is not checked again (``measured_by``)."""
+    groups: dict = {}
+    for rec in PENDING_MODARITH:
+        key = modarith_key(rec)
+        groups.setdefault(key, [rec, 0])[1] += 1
+    PENDING_MODARITH.clear()
+    out_numel = lambda rec: math.prod(torch.broadcast_shapes(*(lay[0] for lay in rec[1])))
+    largest = {}
+    for key, (rec, _) in groups.items():
+        if key[0] not in largest or out_numel(rec) > out_numel(groups[largest[key[0]]][0]):
+            largest[key[0]] = key
+    rows = []
+    for i, (key, (rec, n_calls)) in enumerate(groups.items()):
+        if key in MOD_CHECKED:
+            rows.append(dict(MOD_CHECKED[key][0], calls=n_calls))
+            continue
+        name = rec[0]
+        kernel_fn, plain_fn, n_bytes, muls = modarith_case(rec, seed=5000 + i)
+        err = max_abs_err(kernel_fn(), plain_fn())
+        if err:
+            fail(f"{label}: the modular kernel ({name}) disagrees with its plain version at "
+                 f"{rec[1]}")
+        row = dict(kernel="mod_up" if name == "mod_up" else "modred", op=name,
+                   layouts=[[list(sh), list(st)] for sh, st in rec[1]], max_abs_err=err,
+                   calls=n_calls, measured_by=label, timed=largest[name] == key)
+        if name == "mod_up":
+            mp, sel, centered = rec[2]
+            row.update(ls=len(mp.src), ld=len(mp.dst), sel=None if sel is None else list(sel),
+                       centered=centered)
+        if row["timed"]:
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = muls / INT32_MULS_PER_S * 1e3
+            row.update(ms=time_ms(kernel_fn), device_ms=device_time(kernel_fn),
+                       plain_ms=time_ms(plain_fn, reps=5), bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       shape=list(kernel_fn().shape))
+        MOD_CHECKED[key] = row, rec
+        rows.append(row)
+    torch.cuda.synchronize()
+    return rows
 
 
 _rank_rings: dict = {}
@@ -477,7 +652,7 @@ def cross_time(name, ring, shape, limbs, inverse, seed) -> dict:
     x = rand_input(ring, shape[:-2], limbs, 1, seed)
     want = plain_of(name, ring, x, limbs, inverse)
     out = {}
-    for other, k in KERNELS.items():
+    for other, k in NTT_KERNELS.items():
         if other == name or not takes(other, ring.n):
             continue
         w = k["wrapper"]
@@ -501,7 +676,8 @@ def measure_calls(calls, label: str, largest_only: bool = False) -> list[dict]:
     moduli is not measured again (``measured_by`` names that phase).
     ``largest_only``: time only the largest shape of each kernel and
     direction (the one ``kernel_rows`` reports); hold the others against the
-    plain version untimed."""
+    plain version untimed.  Then the calls of the modular kernels that
+    wait in PENDING_MODARITH (``check_modarith``)."""
     shapes = []
     seen = set()
     key_of = lambda c: (tuple(c[0].moduli), *c[1:])
@@ -538,7 +714,7 @@ def measure_calls(calls, label: str, largest_only: bool = False) -> list[dict]:
         MEASURED[key] = r
         shapes.append(r)
         torch.cuda.empty_cache()
-    return shapes
+    return shapes + check_modarith(label)
 
 
 def check_case(results, name, ring, x, limbs, inverse, **tags) -> None:
@@ -605,12 +781,98 @@ def row_kernel_cases(results, seed: int) -> tuple[list, int]:
     return times, seed
 
 
+def moduli_cols(moduli) -> dict:
+    """The per-limb constant columns [L, 1] of the modular pass."""
+    vals = dict(q=moduli, qinv=[nt.mred_params(q) for q in moduli],
+                u0=[nt.bred_params(q)[0] for q in moduli], u1=[nt.bred_params(q)[1] for q in moduli])
+    return {k: u.from_u64(np.array(v, dtype=np.uint64).reshape(-1, 1), DEV)
+            for k, v in vals.items()}
+
+
+def modarith_cases(results, seed: int) -> list[dict]:
+    """The modular kernels against their plain versions on a grid: every op
+    code of the modular pass at N = 4096 (3 limbs; batch none and 8) and
+    N = 65536 (38 limbs, batch 2), each data operand in each layout the
+    call sites give ([*batch, L, N]; a [L, 1] column; a [1, N] row; one limb
+    expanded over L with stride 0; a slice of more limbs), the constants
+    as [L, 1] columns or one [1, 1] word, every input carrying the edge
+    words 0, q - 1, 2^63 and 2^64 - 1; the basis extension from 1, 2, 4, 9
+    and 34 source limbs to 3, 3, 34, 12 and 38, centered or not, every
+    destination, a range and a list of them, at N = 4096 and 65536.  Each
+    op and each extension at the largest size timed beside its plain
+    version and its bound.  Returns the timing rows."""
+    times = []
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for n, L, batch in ((4096, 3, ()), (4096, 3, (8,)), (65536, 38, (2,))):
+        cols = moduli_cols(nt.generate_ntt_primes(60 if L < 10 else 50, n.bit_length() - 1, L))
+        q0 = int(u.to_u64(cols["q"][:1])[0, 0])
+        edge = [0, q0 - 1, 1 << 63, (1 << 64) - 1]
+        full = (*batch, L, n)
+
+        def data(kind):
+            shape = {"full": full, "col": (L, 1), "row": (1, n), "limb": (*batch, 1, n),
+                     "slice": (*batch, L + 1, n)}[kind]
+            t = strided_words(shape, dense(shape), gen, edge)
+            return {"limb": lambda: t.expand(full), "slice": lambda: t[..., 1:, :]}.get(
+                kind, lambda: t)()
+
+        for name, (_, slots, plain) in mk.OPS.items():
+            for kinds in (("full",) * 3, ("full", "col", "limb"), ("slice", "limb", "full"),
+                          ("limb", "full", "slice"), ("full", "row", "col")):
+                for single in (False, True):
+                    kind = iter(kinds)
+                    ops = [(cols[s][:1] if single else cols[s]) if s in cols else data(next(kind))
+                           for s in slots]
+                    err = max_abs_err(mk.modarith(name, *ops), plain(*ops))
+                    results.append(dict(kernel="modred", op=name, n=n, batch=list(batch), limbs=L,
+                                        layouts=list(kinds), single_constant=single, err=err))
+            if n == 65536:
+                ops = [cols[s] if s in cols else data("full") for s in slots]
+                fn = lambda: mk.modarith(name, *ops)
+                n_bytes = sum(distinct_bytes(t) for t in ops) + 8 * math.prod(full)
+                t_ops = MODRED_MULS[name] * math.prod(full) / INT32_MULS_PER_S * 1e3
+                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                times.append(dict(kernel="modred", op=name, shape=list(full), ms=time_ms(fn),
+                                  device_ms=device_time(fn),
+                                  plain_ms=time_ms(lambda: plain(*ops), reps=5),
+                                  bound_ms=max(t_bytes, t_ops),
+                                  bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        torch.cuda.empty_cache()
+    for ls, ld in ((1, 3), (2, 3), (4, 34), (9, 12), (34, 38)):
+        primes = nt.generate_ntt_primes(50, 16, ls + ld)
+        mp = basis_ext.ModUpParams(primes[:ls], primes[ls:], DEV)
+        for n, batch in ((4096, (3,)), (65536, (8,) if ls == 4 else (1,))):
+            edge = [0, mp.src[0] - 1, 1 << 63, (1 << 64) - 1]
+            shape = (*batch, ls, n)
+            x = strided_words(shape, dense(shape), gen, edge)
+            for centered in (False, True):
+                for sel in (None, range(1, ld), [ld - 1, 0, ld // 2]):
+                    err = max_abs_err(basis_ext.mod_up(x, mp, sel, centered=centered),
+                                      basis_ext.mod_up_plain(x, mp, sel, centered=centered))
+                    results.append(dict(kernel="mod_up", ls=ls, ld=ld, n=n, batch=list(batch),
+                                        centered=centered,
+                                        sel=None if sel is None else list(sel), err=err))
+            if n == 65536:
+                kernel_fn, plain_fn, n_bytes, muls = modarith_case(
+                    ("mod_up", ((shape, dense(shape)),), (mp, None, False)),
+                    seed + ls)
+                t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MULS_PER_S * 1e3
+                times.append(dict(kernel="mod_up", ls=ls, ld=ld, shape=list(shape),
+                                  ms=time_ms(kernel_fn), device_ms=device_time(kernel_fn),
+                                  plain_ms=time_ms(plain_fn, reps=5), bound_ms=max(t_bytes, t_ops),
+                                  bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        torch.cuda.empty_cache()
+    return times
+
+
 def phase_kernels() -> None:
     """Bit-equality (tolerance 0: integers) of each kernel with its plain
     version over a grid of sizes, primes, lazy inputs, limb subsets and
     batches; and the row and long-row kernels' times beside the other
     kernels' (and the baselines', when given) on the same shapes, with
-    their launch plans for every N."""
+    their launch plans for every N.  Then the modular kernels
+    (``modarith_cases``): every op code and every kind of basis extension,
+    with edge words."""
     results = []
     seed = 100
     row_times, seed = row_kernel_cases(results, seed)
@@ -664,6 +926,7 @@ def phase_kernels() -> None:
                     passes_times.append(r)
             del ring
             torch.cuda.empty_cache()
+    modarith_times = modarith_cases(results, seed)
     bad = [r for r in results if r["err"] != 0]
     if any(r["max_abs_err"] != 0 for r in row_times + passes_times):
         bad.append("timing shapes")
@@ -672,7 +935,7 @@ def phase_kernels() -> None:
          row_plans={1 << e: {"72x3": tile_ntt.launch_plan(1 << e, 216)._asdict(),
                              "full": tile_ntt.launch_plan(1 << e)._asdict()} for e in range(8, 15)},
          passes_plans={1 << e: pallas_ntt.launch_plan(1 << e)._asdict() for e in range(10, 18)},
-         row_times=row_times, passes_times=passes_times)
+         row_times=row_times, passes_times=passes_times, modarith_times=modarith_times)
     if bad:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
 
@@ -705,11 +968,8 @@ def phase_small() -> dict:
     got = enc.decode_uint(bfv.Decryptor(params, sk, device=dev).decrypt(ct))
     if not (got == ma * mb % np.uint64(params.t)).all():
         fail("small: the BFV product does not decrypt to ma * mb mod t")
-    ring_mod.FORCE_KERNEL = "plain"
-    try:
+    with all_plain():
         ref = ev.relinearize(ev.mul(ca, cb), rlk)
-    finally:
-        ring_mod.FORCE_KERNEL = None
     if not all(torch.equal(a, b) for a, b in zip(ct.value, ref.value)):
         fail("small: the BFV product differs from the all-plain route")
     out["bfv"] = dict(n=params.n, counts=counts)
@@ -744,11 +1004,8 @@ def phase_small() -> dict:
         precision[name] = median_bits(got, want)
         if precision[name] < MIN_PREC:
             fail(f"small: CKKS {name} has median precision {precision[name]:.2f} < {MIN_PREC}")
-    ring_mod.FORCE_KERNEL = "plain"
-    try:
+    with all_plain():
         refs = path()
-    finally:
-        ring_mod.FORCE_KERNEL = None
     for ct, ref in zip((prod, turned), refs):
         if ref.scale != ct.scale or not all(torch.equal(a, b) for a, b in zip(ct.value, ref.value)):
             fail("small: the CKKS path differs from the all-plain route")
@@ -781,6 +1038,7 @@ def drive(params_idx: int, batch: tuple, label: str) -> dict:
     out = forward(ct0, ct1, swk)
     torch.cuda.synchronize()
     counts = read_counts()
+    copies = dict(modred=mk.modarith.copies, mod_up=basis_ext.mod_up.copies)
 
     enc = bfv.Encoder(params, device=DEV)
     dec = bfv.Decryptor(params, forward.secret_key, device=DEV)
@@ -790,18 +1048,17 @@ def drive(params_idx: int, batch: tuple, label: str) -> dict:
     if got.shape != (*batch, params.n) or not (got == want).all():
         fail(f"{label}: decrypted product differs from m * m[::-1] mod t")
 
-    ring_mod.FORCE_KERNEL = "plain"
-    try:
+    with all_plain():
         ref = forward(ct0, ct1, swk)
-    finally:
-        ring_mod.FORCE_KERNEL = None
     if not all(torch.equal(a, b) for a, b in zip(out.value, ref.value)):
         fail(f"{label}: forward differs from the all-plain route")
 
     forward_ms = host_ms(lambda: forward(ct0, ct1, swk))
     return dict(label=label, n=params.n, batch=list(batch), counts=counts,
                 setup_and_first_forward_counts=pipeline_before, setup_s=setup_s,
-                first_forward_s=first_forward_s, forward_ms=forward_ms,
+                first_forward_s=first_forward_s, forward_ms=forward_ms, plan_copies=copies,
+                cuda_kernels=cuda_kernels(lambda: forward(ct0, ct1, swk),
+                                          counts["modred"] + counts["mod_up"]),
                 shapes=measure_calls(calls, label))
 
 
@@ -834,9 +1091,10 @@ def phase_ckks() -> dict:
     counts = read_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     want_counts = {k: 0 for k in counts}
-    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4)
+    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4, modred=19, mod_up=11)
     if counts != want_counts:
-        fail(f"{label}: launch counts of one forward are {counts}, expected 4 + 4 ntt_passes")
+        fail(f"{label}: launch counts of one forward are {counts}, expected 4 + 4 ntt_passes, "
+             "19 modular-pass and 11 basis-extension launches")
 
     ev, rot_keys = forward.evaluator, forward.rotation_keys
     rot = ev.rotate_columns(out, 1, rot_keys)
@@ -861,11 +1119,8 @@ def phase_ckks() -> dict:
         fail(f"{label}: forward left level {out.level}, expected {params.max_level - 1}")
     del rot, conj
 
-    ring_mod.FORCE_KERNEL = "plain"
-    try:
+    with all_plain():
         ref = forward(ct0, ct1, rlk)
-    finally:
-        ring_mod.FORCE_KERNEL = None
     if ref.scale != out.scale or not all(torch.equal(a, b) for a, b in zip(out.value, ref.value)):
         fail(f"{label}: forward differs from the all-plain route")
     del ref
@@ -952,11 +1207,8 @@ def phase_dbfv() -> dict:
     if got.shape != (params.n,) or not (got == pir.rows[pir.wanted]).all():
         fail(f"dbfv: the retrieved row differs from row {pir.wanted}")
 
-    ring_mod.FORCE_KERNEL = "plain"
-    try:
+    with all_plain():
         ref = cloud()
-    finally:
-        ring_mod.FORCE_KERNEL = None
     if not _same(result, ref):
         fail("dbfv: the cloud step differs from the all-plain route")
     cloud_ms = time_ms(cloud, reps=5)
@@ -1061,11 +1313,8 @@ def phase_rotate(batch: int) -> dict:
         got = enc.decode_uint(dec.decrypt(res))
         if got.shape != (batch, n) or not (got == want).all():
             fail(f"rotate: {name} does not decrypt to the expected slots")
-        ring_mod.FORCE_KERNEL = "plain"
-        try:
+        with all_plain():
             ref = fn()
-        finally:
-            ring_mod.FORCE_KERNEL = None
         if not _same(res, ref):
             fail(f"rotate: {name} differs from the all-plain route")
         del res, ref
@@ -1167,11 +1416,8 @@ def phase_dckks() -> dict:
         fail(f"dckks: median precision {precision['vs_sigmoid']:.2f} < {DCKKS_BITS['path']} bits")
     path_stages = list(counts)
 
-    ring_mod.FORCE_KERNEL = "plain"
-    try:
+    with all_plain():
         refs = layer1(), layer2()
-    finally:
-        ring_mod.FORCE_KERNEL = None
     for name, ct, ref in (("layer1", hidden, refs[0]), ("layer2", out, refs[1])):
         if not _ct_same(ct, ref):
             fail(f"dckks: {name} differs from the all-plain route")
@@ -1744,8 +1990,11 @@ def phase_bench() -> dict:
     party = by["dbfv_8party_ckg_pcks_refresh_pn12qp109"]
     if party["party_noise_distinct_pairs"] != 28 or not party["pcks_and_refresh_exact"]:
         fail(f"bench: the 8-party shares {party}")
-    for name in KERNELS:
+    for name in NTT_KERNELS:
         if counts[name + "_fwd"] == 0:
+            fail(f"bench: the bench never launched {name}")
+    for name in MODARITH_KERNELS:
+        if counts[name] == 0:
             fail(f"bench: the bench never launched {name}")
     shapes = measure_calls(calls, label, largest_only=True)
     pn16 = ckks.default_params(ckks.PN16QP1761)
@@ -1776,40 +2025,138 @@ def phase_bench() -> dict:
                 counts=counts, shapes=shapes, named_shapes=rows)
 
 
-def phase_profile(make, label: str) -> None:
-    """One ``forward`` under torch.profiler: wall time, the device's busy
-    time (sum of kernel self times), its idle share, and the kernels that
-    take most of it."""
+PROFILER_PAD_S = 0.02  # idle time at both ends of a profiler window
+
+
+def profiled(fn):
+    """``(torch.profiler's CUDA events of one call of fn, wall ms)``; the
+    window is padded with idle time at both ends, where a record near its
+    edge was seen to go missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    forward, args = make()
-    for _ in range(2):
-        forward(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
         t0 = time.perf_counter()
-        forward(*args)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        time.sleep(PROFILER_PAD_S)
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], wall_ms
+
+
+def cuda_kernels(fn, modular_launches: int) -> dict:
+    """The CUDA kernels one call of ``fn`` launches, from the profiler's
+    (CUPTI) trace: all of them, those of the NTT wrappers, those of the
+    modular kernels, and the rest outside the NTT wrappers; copies and
+    memsets apart.  Up to 3 traces, until the modular kernels' count equals
+    their wrappers' ``modular_launches`` (``complete``); the fullest one
+    counts."""
+    best = None
+    for attempt in range(1, 4):
+        events, _ = profiled(fn)
+        copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in events if e not in copies]
+        count = lambda names: sum(e.count for e in kernels if any(n in e.key for n in names))
+        total = sum(e.count for e in kernels)
+        ntt = count(NTT_KERNEL_NAMES)
+        modular = count(("modred_kernel", "mod_up_kernel"))
+        row = dict(total=total, ntt=ntt, outside_ntt=total - ntt, modular=modular,
+                   copies=sum(e.count for e in copies), complete=modular == modular_launches,
+                   attempts=attempt)
+        if best is None or total > best["total"]:
+            best = row
+        if row["complete"]:
+            break
+    if best["total"] == 0:
+        fail("torch.profiler recorded no CUDA kernel")
+    return dict(best, attempts=attempt)
+
+
+def trace(label: str, call, **tags) -> None:
+    """One call of ``call`` (already warm) under torch.profiler: wall time,
+    the device's busy time (sum of kernel self times), its idle share, the
+    launches and device time of the NTT kernels, of the modular kernels and
+    of the rest, and the kernels that take most of it, by name."""
+    kernels, wall_ms = profiled(call)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", label=label, traced_forward_ms=wall_ms,
+    groups = {"ntt": NTT_KERNEL_NAMES, "modular": ("modred_kernel", "mod_up_kernel")}
+    by_group = {g: dict(count=0, ms=0.0) for g in (*groups, "other")}
+    for e in kernels:
+        g = next((g for g, names in groups.items() if any(n in e.key for n in names)), "other")
+        by_group[g]["count"] += e.count
+        by_group[g]["ms"] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    emit("profile", label=label, **tags, traced_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-         kernel_launches=sum(e.count for e in kernels),
+         kernel_launches=sum(e.count for e in kernels), by_group=by_group,
          top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3, count=e.count) for e in top])
+
+
+def phase_profile(make, label: str) -> None:
+    """One eager ``forward`` traced (``trace``)."""
+    forward, args = make()
+    for _ in range(2):
+        forward(*args)
+    reset_counts()
+    forward(*args)
+    torch.cuda.synchronize()
+    trace(label, lambda: forward(*args), program="eager", wrapper_launches=read_counts())
+
+
+def phase_profile_replays() -> None:
+    """One replay of ``tjit(forward)`` at PN12QP109 and of the PIR cloud's
+    graph at PN13QP218 x 8 rows, traced by kernel name; then the same
+    programs captured anew with the modular arithmetic on its plain version
+    (``modred_kernel.FORCE_PLAIN``) and traced the same way: the before and
+    the after in one call."""
+    forward, fargs = entry(device=DEV)
+    pir = entry_dbfv_pir(device=DEV)
+    pk, rlk, rot_keys = pir.ckg(), pir.rkg(), pir.rtg()
+    query, rows, masks = pir.encrypt(pk)
+    pargs = (query, rows, masks, rlk, rot_keys)
+    for modular in ("kernels", "plain"):
+        for label, fn, args in (("PN12QP109 tjit(forward)", forward, fargs),
+                                ("PN13QP218 PIR cloud", pir.cloud, pargs)):
+            program = tjit(fn)
+            reset_counts()
+            mk.FORCE_PLAIN = modular == "plain"
+            try:
+                program(*args)  # warm-up and capture: each launch twice
+            finally:
+                mk.FORCE_PLAIN = False
+            held = {k: v // 2 for k, v in read_counts().items()}
+            program(*args)
+            trace(label, lambda: program(*args), program="replay", modular=modular,
+                  wrapper_launches_in_graph=held,
+                  replay_ms=event_ms(lambda: program(*args), reps=5, warmup=1))
+            del program
+            torch.cuda.empty_cache()
 
 
 def kernel_rows(res: dict, names) -> list[dict]:
     """The summary rows of kernels ``names`` from one path's run: for each
-    kernel and direction the largest shape the run gave it, with the
-    launches of that path's forward."""
+    NTT kernel and direction, and for each modular kernel, the largest shape
+    the run gave it (timed), with the launches of that path's forward."""
     out = []
     for name in names:
         k = KERNELS[name]
+        if name in MODARITH_KERNELS:
+            mine = [s for s in res["shapes"] if s["kernel"] == name]
+            timed = [s for s in mine if s.get("timed")]
+            if not timed:
+                continue
+            s = max(timed, key=lambda s: int(np.prod(s["shape"])))
+            out.append(dict(
+                name=name, route=k["route"], source=k["source"], replaces=k["replaces"],
+                launches=res["counts"][name], max_abs_err=max(m["max_abs_err"] for m in mine),
+                ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                bound_by=s["bound_by"], library_ms=None, path=res["label"], shape=s["shape"],
+                op=s["op"], device_ms=s["device_ms"], note=k["note"], shapes_checked=len(mine)))
+            continue
         for inverse, tag in ((False, "_fwd"), (True, "_inv")):
             mine = [s for s in res["shapes"] if s["kernel"] == name and s["inverse"] == inverse]
             if not mine:
@@ -1858,9 +2205,14 @@ def main() -> None:
         res = drive(bfv.PN12QP109, (), "PN12QP109")
         emit("main_path", **res)
         if res["counts"] != {"ntt_tile_fwd": 1, "ntt_tile_inv": 2, "ntt_mxu_fwd": 6,
-                             "ntt_mxu_inv": 2, "ntt_passes_fwd": 0, "ntt_passes_inv": 0}:
-            fail(f"launch counts of one forward are {res['counts']}, expected 8 four-step and 3 row")
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+                             "ntt_mxu_inv": 2, "ntt_passes_fwd": 0, "ntt_passes_inv": 0,
+                             "modred": 28, "mod_up": 8}:
+            fail(f"launch counts of one forward are {res['counts']}, expected 8 four-step, "
+                 "3 row, 28 modular-pass and 8 basis-extension launches")
+        if res["cuda_kernels"]["outside_ntt"] > MAX_OTHER_KERNELS:
+            fail(f"one forward launched {res['cuda_kernels']['outside_ntt']} CUDA kernels "
+                 f"outside the NTT wrappers, more than {MAX_OTHER_KERNELS}")
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "modred", "mod_up"))
     if "full_width" in phases:
         res = drive(bfv.PN14QP438, (args.batch,), "PN14QP438")
         emit("full_width", **res)
@@ -1871,7 +2223,7 @@ def main() -> None:
     if "ckks" in phases:
         res = phase_ckks()
         emit("ckks", **res)
-        summary += kernel_rows(res, ("ntt_passes",))
+        summary += kernel_rows(res, ("ntt_passes", "modred", "mod_up"))
         torch.cuda.empty_cache()
     if "bfv15" in phases:
         res = drive(bfv.PN15QP880, (), "PN15QP880")
@@ -1883,7 +2235,7 @@ def main() -> None:
     if "dbfv" in phases:
         res = phase_dbfv()
         emit("dbfv", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "modred", "mod_up"))
         torch.cuda.empty_cache()
     if "rotate" in phases:
         res = phase_rotate(args.batch)
@@ -1893,7 +2245,7 @@ def main() -> None:
     if "dckks" in phases:
         res = phase_dckks()
         emit("dckks", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "modred", "mod_up"))
         torch.cuda.empty_cache()
     if "parallel" in phases:
         res = phase_parallel()
@@ -1910,14 +2262,16 @@ def main() -> None:
     if "bench" in phases:
         res = phase_bench()
         emit("bench", **{k: v for k, v in res.items() if k != "named_shapes"})
-        summary += kernel_rows(dict(res, shapes=res["named_shapes"]), tuple(KERNELS))
+        summary += kernel_rows(dict(res, shapes=res["named_shapes"]), tuple(NTT_KERNELS))
+        summary += kernel_rows(res, tuple(MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "jit" in phases:
         for res in phase_jit():
             emit("jit", **{k: v for k, v in res.items() if k != "kernels"})
-            summary += kernel_rows(res, res["kernels"])
+            summary += kernel_rows(res, (*res["kernels"], "modred", "mod_up"))
         torch.cuda.empty_cache()
     if "profile" in phases:
+        phase_profile_replays()
         phase_profile(lambda: entry(device=DEV), "PN12QP109")
         phase_profile(lambda: entry(device=DEV, params_idx=bfv.PN14QP438, batch=(args.batch,)),
                       f"PN14QP438 x {args.batch}")
@@ -1928,7 +2282,7 @@ def main() -> None:
             if k["launches"] < 1:
                 fail(f"the main path never launched {k['name']}")
         if {"main_path", "ckks"} <= set(phases):
-            named = {k["name"].rsplit("_", 1)[0] for k in summary}
+            named = {re.sub(r"_(fwd|inv)$", "", k["name"]) for k in summary}
             if named != set(KERNELS):
                 fail(f"the kernels line names {sorted(named)}, not every kernel")
         print(json.dumps({"kernels": summary}), flush=True)

@@ -58,15 +58,16 @@ def _count(batch: tuple) -> int:
     return int(np.prod(batch, dtype=np.int64)) if batch else 1
 
 
-def entry(device=None, params_idx: int = bfv.PN12QP109, batch=()):
+def entry(device=None, params_idx: int | bfv.Parameters = bfv.PN12QP109, batch=()):
     """Returns ``(forward, (ct0, ct1, rlk_swk))`` at a reference-shipped BFV
-    parameter set: keys are generated, ``m`` and its reverse are encrypted,
-    and ``forward(ct0, ct1, rlk_swk)`` is ``relinearize(mul(ct0, ct1))``.
+    parameter set (or the ``bfv.Parameters`` given as ``params_idx``): keys
+    are generated, ``m`` and its reverse are encrypted, and
+    ``forward(ct0, ct1, rlk_swk)`` is ``relinearize(mul(ct0, ct1))``.
 
     ``batch`` stacks that many independently encrypted ciphertext pairs on
     leading axes; the evaluator broadcasts over them.  ``device=None`` means
     the GPU and raises when there is none."""
-    params = bfv.default_params(params_idx)
+    params = params_idx if isinstance(params_idx, bfv.Parameters) else bfv.default_params(params_idx)
     kgen = bfv.KeyGenerator(params, device=device)
     enc = bfv.Encoder(params, device=device)
     ev = bfv.Evaluator(params, device=device)
@@ -737,8 +738,9 @@ def _dryrun_rank(params, device_type: str) -> dict:
               "mul + relinearize inside sharded_ntt differs from the unsharded one")
         check((decode(ct_sq2) == want_sq).all(),
               "mul + relinearize inside sharded_ntt does not decrypt exactly")
-        check(sum(counts["mul_relin_sharded"].values()) == 0,
-              "a kernel was launched inside sharded_ntt")
+        check(sum(v for k, v in counts["mul_relin_sharded"].items()
+                  if k.endswith(("_fwd", "_inv"))) == 0,
+              "an NTT kernel was launched inside sharded_ntt")
 
         ct_rot = stage("rotate", lambda: ev.rotate_columns(ct, 1, rot_keys))
         half = params.n >> 1

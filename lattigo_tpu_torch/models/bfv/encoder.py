@@ -9,7 +9,7 @@ import numpy as np
 
 from lattigo_tpu_torch.models.bfv.context import GALOIS_GEN, get_context
 from lattigo_tpu_torch.models.bfv.elements import Plaintext
-from lattigo_tpu_torch.ops import modred
+from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.ops.number_theory import bit_reverse
 
@@ -56,7 +56,7 @@ class Encoder:
         ring_q = ctx.ring_q
         pt_t = ctx.ring_t.intt(u.from_u64(vals.reshape(1, -1), ctx.device))
         # lift: pt_q[i] = MRed(pt_t, deltaMont[i]) (bfv/encoder.go:121-138)
-        return Plaintext(modred.mred(pt_t, self._delta_mont, ring_q.q_, ring_q.qinv_))
+        return Plaintext(mk.mred(pt_t, self._delta_mont, ring_q.q_, ring_q.qinv_))
 
     def decode_uint(self, pt: Plaintext) -> np.ndarray:
         """bfv/encoder.go:140-156: t/Q scale -> NTT mod t -> gather.  A

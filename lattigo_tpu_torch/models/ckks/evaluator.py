@@ -23,7 +23,8 @@ import torch
 
 from lattigo_tpu_torch.models.ckks.context import get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, drop_to_level, polys_of
-from lattigo_tpu_torch.ops import galois, modred, number_theory as nt, scaling
+from lattigo_tpu_torch.ops import galois, number_theory as nt, scaling
+from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.tjit import GraphPool, tjit
 
@@ -129,7 +130,7 @@ class Evaluator:
         lvl = ct.level
         plane = self._const_planes(c_real, c_imag, ct.scale, lvl, mont=False)
         q = self.ctx.ring_q.q_[: lvl + 1]
-        return Ciphertext([modred.cred(ct.value[0] + plane, q)] + list(ct.value[1:]), ct.scale)
+        return Ciphertext([mk.add(ct.value[0], plane, q)] + list(ct.value[1:]), ct.scale)
 
     def mult_by_const(self, ct: Ciphertext, constant) -> Ciphertext:
         """ckks/evaluator.go:560-680."""

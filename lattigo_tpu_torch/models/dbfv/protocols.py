@@ -34,7 +34,8 @@ from lattigo_tpu_torch.models.bfv.keygen import (
     RotationKeys,
     SwitchingKey,
 )
-from lattigo_tpu_torch.ops import galois, modred, samplers
+from lattigo_tpu_torch.ops import galois, samplers
+from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
 
 
@@ -339,7 +340,7 @@ class RefreshProtocol(_Protocol):
         (dbfv/public_refresh.go:198-205)."""
         rq = self.ctx.ring_q
         rep = p_t.expand(*p_t.shape[:-2], rq.L, self.ctx.n)
-        return modred.mred(rep, self._delta_mont, rq.q_, rq.qinv_)
+        return mk.mred(rep, self._delta_mont, rq.q_, rq.qinv_)
 
     def aggregate(self, s1, s2):
         return self._add_pairs(self.ctx.ring_q, s1, s2)

@@ -7,14 +7,23 @@ integer fixed point through per-modulus reciprocal words
 packages agree bit for bit (the reference itself uses float64 there).
 
 All functions broadcast over leading dims of ``[..., L, N]`` tensors.
+
+:func:`mod_up` launches ``csrc/mod_up.cu`` for a CUDA tensor (one thread a
+coefficient column; no TPU kernel: XLA fuses the JAX function into one
+device pass under ``jax.jit``); its plain version :func:`mod_up_plain`
+serves CPU tensors.  Bound on the GPU: the operations from ls = 2 on
+(``(ls (k + 1) + k)`` Montgomery products a column), else the bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from lattigo_tpu_torch.ops import modred, number_theory as nt
+from lattigo_tpu_torch import _build
+from lattigo_tpu_torch.ops import modred, modred_kernel as mk, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
 
 _V_FRAC_BITS = 58  # fixed-point fractional bits of the correction term
@@ -41,31 +50,113 @@ class ModUpParams:
             m = (1 << (64 + _V_FRAC_BITS)) // q
             m_lo.append(m & nt.MASK64)
             m_hi.append(m >> 64)
-
-        self.qib_mont_ = _col(qib, device)
-        self.m_lo_ = _col(m_lo, device)
-        self.m_hi_ = _col(m_hi, device)
-        # (Q/qi) mod pj, Montgomery form wrt pj: [ls, ld, 1]
-        self.qispj_mont_ = u.from_u64(
-            np.array(
-                [[nt.mform((big_q // q) % p, p) for p in self.dst] for q in self.src],
-                dtype=np.uint64,
-            )[..., None],
-            device,
-        )
+        src_rows = [qib, m_lo, m_hi, self.src, [nt.mred_params(q) for q in self.src]]
         # correction: (-Q) mod pj, Montgomery form wrt pj (and plain, for
         # the centered lift's conditional subtraction)
-        self.negq_mont_ = _col([nt.mform((-big_q) % p, p) for p in self.dst], device)
-        self.negq_plain_ = _col([(-big_q) % p for p in self.dst], device)
+        dst_rows = [self.dst, [nt.mred_params(p) for p in self.dst],
+                    [nt.bred_params(p)[0] for p in self.dst],
+                    [nt.mform((-big_q) % p, p) for p in self.dst],
+                    [(-big_q) % p for p in self.dst]]
+        # (Q/qi) mod pj, Montgomery form wrt pj: [ls, ld]
+        qispj = np.array([[nt.mform((big_q // q) % p, p) for p in self.dst] for q in self.src],
+                         dtype=np.uint64)
 
-        self.sq_ = _col(self.src, device)
-        self.sqinv_ = _col([nt.mred_params(q) for q in self.src], device)
-        self.dp_ = _col(self.dst, device)
-        self.dpinv_ = _col([nt.mred_params(p) for p in self.dst], device)
-        self.dp_u0_ = _col([nt.bred_params(p)[0] for p in self.dst], device)
+        self.qib_mont_, self.m_lo_, self.m_hi_, self.sq_, self.sqinv_ = (
+            _col(r, device) for r in src_rows)
+        self.dp_, self.dpinv_, self.dp_u0_, self.negq_mont_, self.negq_plain_ = (
+            _col(r, device) for r in dst_rows)
+        self.qispj_mont_ = u.from_u64(qispj[..., None], device)  # [ls, ld, 1]
+        # the kernel's tables in one flat array: [5, ls] source rows, [5, ld]
+        # destination rows, then [ls, ld] (csrc/mod_up.cu Args.tab)
+        self.packed_ = u.from_u64(np.concatenate([
+            np.array(src_rows, dtype=np.uint64).ravel(),
+            np.array(dst_rows, dtype=np.uint64).ravel(), qispj.ravel()]), device)
+        self._sel: dict = {}
+
+    def sel_vector(self, dst_sel) -> torch.Tensor:
+        """The destination limbs ``dst_sel`` selects (all for None) as an
+        int32 index vector on the device, cached: the kernel's ``sel``."""
+        key = tuple(range(len(self.dst))) if dst_sel is None else tuple(int(j) for j in dst_sel)
+        if not all(0 <= j < len(self.dst) for j in key):
+            raise IndexError(f"dst_sel {key} out of range for {len(self.dst)} limbs")
+        if key not in self._sel:
+            self._sel[key] = torch.tensor(key, dtype=torch.int32, device=self.packed_.device)
+        return self._sel[key]
+
+
+_lib = None
+# mod_up_launch: x and its [B, ls, N] strides; tables, sel, out; B, N; ls,
+# ld, k, centered; the stream
+ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("mod_up")
+        lib.mod_up_launch.argtypes = ARGTYPES
+        lib.mod_up_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _takes_kernel(x: torch.Tensor) -> bool:
+    """Whether :func:`mod_up` launches the kernel for ``x``: an int64 CUDA
+    tensor (unless ``modred_kernel.FORCE_PLAIN``); a CPU tensor takes the
+    plain version; anything else raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda" or x.dtype != torch.int64:
+        raise TypeError(f"mod_up takes int64 tensors on cpu or cuda, got {x.dtype} on {x.device}")
+    return not mk.FORCE_PLAIN
+
+
+def _launch(x: torch.Tensor, strides, mp: ModUpParams, sel: torch.Tensor, out: torch.Tensor,
+            centered: bool) -> int:
+    """Launches the kernel on the current stream of ``out``'s device;
+    returns the C entry's error (0: launched)."""
+    ls, k, n = x.shape[-2], out.shape[-2], x.shape[-1]
+    return mk.launch_on(out.device, lambda stream: _library().mod_up_launch(
+        x.data_ptr(), *strides, mp.packed_.data_ptr(), sel.data_ptr(), out.data_ptr(),
+        out.numel() // (k * n), n, ls, len(mp.dst), k, int(centered), stream))
 
 
 def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None, centered: bool = False) -> torch.Tensor:
+    """:func:`mod_up_plain` as one launch of ``csrc/mod_up.cu`` for a CUDA
+    tensor; the plain version for a CPU tensor."""
+    ls = x.shape[-2]
+    assert ls == len(mp.src), (ls, len(mp.src))
+    if not _takes_kernel(x):
+        return mod_up_plain(x, mp, dst_sel, centered)
+    if x.device != mp.packed_.device:
+        raise ValueError(f"x on {x.device}, basis tables on {mp.packed_.device}")
+    sel = mp.sel_vector(dst_sel)
+    plan = mk.launch_plan((x,))
+    out = torch.empty((*x.shape[:-2], len(sel), x.shape[-1]), dtype=torch.int64,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    err = _launch(plan.operands[0].tensor, plan.operands[0].strides, mp, sel, out, centered)
+    if err == -2:
+        raise RuntimeError(f"mod_up_launch does not take {ls} -> {len(sel)} limbs "
+                           f"over {plan.dims}")
+    if err != 0:
+        raise RuntimeError(f"mod_up_launch failed with CUDA error {err}")
+    mod_up.launches += 1
+    mod_up.copies += plan.copies
+    if mk._RECORD is not None:
+        mk._RECORD.append(("mod_up", ((tuple(x.shape), tuple(x.stride())),),
+                           (mp, dst_sel, centered)))
+    return out
+
+
+mod_up.launches = 0  # launches of csrc/mod_up.cu
+mod_up.copies = 0  # input copies the launch plans made
+
+
+def mod_up_plain(x: torch.Tensor, mp: ModUpParams, dst_sel=None,
+                 centered: bool = False) -> torch.Tensor:
     """Exact base conversion of ``x`` ([..., ls, N], basis src) to
     [..., len(dst_sel), N] in basis dst (ring/ring_basis_extension.go:352-393).
     ``dst_sel`` selects which destination limbs to produce (default: all).
@@ -158,8 +249,8 @@ class FastBasisExtender:
     @staticmethod
     def _div(x_main, pool, inv_mont, ring):
         lvl = ring.level_of(x_main)
-        q = ring.q_[: lvl + 1]
-        return modred.mred(x_main + (q - pool), inv_mont[: lvl + 1], q, ring.qinv_[: lvl + 1])
+        return mk.mred_diff(x_main, pool, inv_mont[: lvl + 1], ring.q_[: lvl + 1],
+                            ring.qinv_[: lvl + 1])
 
     def mod_down_split_pq(self, x_q, x_p):
         """(x - [x]_P) / P in basis Q, coefficient domain

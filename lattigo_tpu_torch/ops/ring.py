@@ -30,7 +30,7 @@ import torch
 
 from lattigo_tpu_torch import device as _device
 from lattigo_tpu_torch import tjit
-from lattigo_tpu_torch.ops import modred, number_theory as nt
+from lattigo_tpu_torch.ops import modred, modred_kernel as mk, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.parallel import cross_ntt
 
@@ -73,18 +73,24 @@ def distinct_transforms(calls) -> list[tuple]:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset, by direction
-    (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...)."""
+    """Launches of each CUDA kernel since the last reset: the NTT kernels by
+    direction (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...),
+    then the modular pass (``modred``) and the basis extension
+    (``mod_up``)."""
     out = {}
     for name, w in _kernel_wrappers().items():
         out[name + "_fwd"] = w.launches - w.inverse_launches
         out[name + "_inv"] = w.inverse_launches
+    for name, w in _modarith_wrappers().items():
+        out[name] = w.launches
     return out
 
 
 def reset_launch_counts() -> None:
     for w in _kernel_wrappers().values():
         w.launches = w.inverse_launches = 0
+    for w in _modarith_wrappers().values():
+        w.launches = w.copies = 0
 
 
 def _kernel_wrappers() -> dict:
@@ -92,6 +98,12 @@ def _kernel_wrappers() -> dict:
 
     return {"ntt_tile": tile_ntt.ntt_tile, "ntt_mxu": mxu_ntt.ntt_mxu,
             "ntt_passes": pallas_ntt.ntt_passes}
+
+
+def _modarith_wrappers() -> dict:
+    from lattigo_tpu_torch.ops import basis_ext
+
+    return {"modred": mk.modarith, "mod_up": basis_ext.mod_up}
 
 
 def _tbl(vals, shape, device) -> torch.Tensor:
@@ -359,49 +371,48 @@ class Ring:
         )
 
     def add(self, a, b):
-        return modred.cred(a + b, self._qc(a)[0])
+        return mk.add(a, b, self._qc(a)[0])
 
     def sub(self, a, b):
-        q = self._qc(a)[0]
-        return modred.cred(a + q - b, q)
+        return mk.sub(a, b, self._qc(a)[0])
 
     def neg(self, a):
-        return self._qc(a)[0] - a
+        return mk.neg(a, self._qc(a)[0])
 
     def reduce(self, a):
         q, u0, _, _ = self._qc(a)
-        return modred.bred_add(a, q, u0)
+        return mk.bred_add(a, q, u0)
 
     def mform(self, a):
         q, u0, u1, _ = self._qc(a)
-        return modred.mform(a, q, u0, u1)
+        return mk.mform(a, q, u0, u1)
 
     def inv_mform(self, a):
         q, _, _, qinv = self._qc(a)
-        return modred.inv_mform(a, q, qinv)
+        return mk.inv_mform(a, q, qinv)
 
     def mul_coeffs_montgomery(self, a, b):
         """a .* b * 2^-64 mod q (one operand in Montgomery form)."""
         q, _, _, qinv = self._qc(a)
-        return modred.mred(a, b, q, qinv)
+        return mk.mred(a, b, q, qinv)
 
     def mul_coeffs_montgomery_limbs(self, a, b, limbs: tuple[int, ...]):
         """mul_coeffs_montgomery where limb row k of a/b lives under modulus
         ``limbs[k]`` (non-prefix limb selections: stacked key-switch planes)."""
         q = self._tbl_rows(self.q_, limbs)
-        return modred.mred(a, b, q, self._tbl_rows(self.qinv_, limbs))
+        return mk.mred(a, b, q, self._tbl_rows(self.qinv_, limbs))
 
     def reduce_limbs(self, a, limbs: tuple[int, ...]):
         """BRedAdd exact reduction with explicit limb-table indices."""
-        return modred.bred_add(a, self._tbl_rows(self.q_, limbs), self._tbl_rows(self.u0_, limbs))
+        return mk.bred_add(a, self._tbl_rows(self.q_, limbs), self._tbl_rows(self.u0_, limbs))
 
     def mul_coeffs_montgomery_and_add(self, a, b, c):
         q, _, _, qinv = self._qc(a)
-        return modred.cred(modred.mred(a, b, q, qinv) + c, q)
+        return mk.mred_add(a, b, c, q, qinv)
 
     def mul_coeffs_montgomery_and_sub(self, a, b, c):
         q, _, _, qinv = self._qc(a)
-        return modred.cred(q - modred.mred(a, b, q, qinv) + c, q)
+        return mk.mred_sub(a, b, c, q, qinv)
 
     def _cached(self, key, build):
         """The table under ``key`` in the ring's LRU cache of at most
@@ -430,16 +441,16 @@ class Ring:
     def mul_scalar_bigint(self, a, scalar: int):
         """a * scalar mod q per limb, arbitrary-precision scalar."""
         q, _, _, qinv = self._qc(a)
-        return modred.mred(a, self._scalar_tbl(a, "mul", scalar), q, qinv)
+        return mk.mred(a, self._scalar_tbl(a, "mul", scalar), q, qinv)
 
     # the JAX package's mul_scalar has the same body as mul_scalar_bigint
     mul_scalar = mul_scalar_bigint
 
     def add_scalar_bigint(self, a, scalar: int):
-        return modred.cred(a + self._scalar_tbl(a, "add", scalar), self._qc(a)[0])
+        return mk.add(a, self._scalar_tbl(a, "add", scalar), self._qc(a)[0])
 
     def sub_scalar_bigint(self, a, scalar: int):
-        return modred.cred(a + self._scalar_tbl(a, "sub", scalar), self._qc(a)[0])
+        return mk.add(a, self._scalar_tbl(a, "sub", scalar), self._qc(a)[0])
 
     add_scalar = add_scalar_bigint
     sub_scalar = sub_scalar_bigint
@@ -456,23 +467,23 @@ class Ring:
     def mul_coeffs_montgomery_constant(self, a, b):
         """a .* b * 2^-64 mod q, lazily reduced into [0, 2q)."""
         q, _, _, qinv = self._qc(a)
-        return modred.mred_constant(a, b, q, qinv)
+        return mk.mred_constant(a, b, q, qinv)
 
     def mul_coeffs_montgomery_and_add_nomod(self, a, b, c):
         q, _, _, qinv = self._qc(a)
-        return modred.mred(a, b, q, qinv) + c
+        return mk.mred_add_lazy(a, b, c, q, qinv)
 
     def mul_coeffs(self, a, b):
         """Barrett a .* b mod q (no Montgomery precondition)."""
         q, u0, u1, _ = self._qc(a)
-        return modred.bred(a, b, q, u0, u1)
+        return mk.bred(a, b, q, u0, u1)
 
     def _const(self, m: int) -> torch.Tensor:
         return self._cached(("const", m), lambda: _tbl([m], (1, 1), self.device))
 
     def mod_scalar(self, a, m: int):
         """Each coefficient mod an arbitrary 64-bit m (ring/ring.go:146)."""
-        return modred.bred_add(a, self._const(m), self._const(nt.bred_params(m)[0]))
+        return mk.bred_add(a, self._const(m), self._const(nt.bred_params(m)[0]))
 
     def and_scalar(self, a, m: int):
         return a & self._const(m)
@@ -514,7 +525,7 @@ class Ring:
         """a .* vector (Montgomery per-slot weights) (ring/ring.go:726)."""
         vec = u.from_u64(np.asarray(vector, dtype=np.uint64).reshape(1, -1), a.device)
         q, _, _, qinv = self._qc(a)
-        return modred.mred(a, vec, q, qinv)
+        return mk.mred(a, vec, q, qinv)
 
     def bit_reverse(self, a):
         """Permute coefficients into bit-reversed order (ring/ring.go:749)."""
@@ -551,7 +562,7 @@ class Ring:
         twist = self._cached(("rotrows", lvl, n_rot),
                              lambda: u.from_u64(self._rotate_rows(lvl, n_rot), self.device))
         q, _, _, qinv = self._qc(a)
-        return modred.mred(a, twist, q, qinv)
+        return mk.mred(a, twist, q, qinv)
 
     def exp(self, a, e: int):
         """a(X)^e in the ring by NTT pointwise powering (the reference's Exp

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lattigo_tpu_torch.ops import modred, number_theory as nt
+from lattigo_tpu_torch.ops import modred, modred_kernel as mk, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
 
 _F = 58  # fixed-point fractional bits for the rounding term
@@ -41,8 +41,8 @@ def div_floor_by_last_modulus(ring, x: torch.Tensor) -> torch.Tensor:
     (ring/ring_scaling.go:37-55).  Returns one fewer limb."""
     lvl = ring.level_of(x)
     q, qinv, u0 = _consts(ring, lvl)
-    last_mod_qi = modred.bred_add(x[..., -1:, :], q, u0)
-    return modred.mred(x[..., :-1, :] + (q - last_mod_qi), _rescale_tbl(ring, lvl), q, qinv)
+    last_mod_qi = mk.bred_add(x[..., -1:, :], q, u0)
+    return mk.mred_diff(x[..., :-1, :], last_mod_qi, _rescale_tbl(ring, lvl), q, qinv)
 
 
 def div_floor_by_last_modulus_ntt(ring, x: torch.Tensor) -> torch.Tensor:
@@ -52,26 +52,25 @@ def div_floor_by_last_modulus_ntt(ring, x: torch.Tensor) -> torch.Tensor:
     last_coeff = ring.intt_limbs(x[..., -1:, :], (lvl,))
     tmp = ring.ntt_limbs(_bcast_limb(last_coeff, lvl), tuple(range(lvl)))
     q, qinv, _ = _consts(ring, lvl)
-    return modred.mred(x[..., :-1, :] + (q - tmp), _rescale_tbl(ring, lvl), q, qinv)
+    return mk.mred_diff(x[..., :-1, :], tmp, _rescale_tbl(ring, lvl), q, qinv)
 
 
 def _half_shift(ring, lvl: int):
-    """(q_last - 1) / 2 and its negation mod each kept q_i: the shift that
-    turns the floor into a rounding."""
+    """(q_last - 1) / 2 as a [1, 1] column and its negation mod each kept
+    q_i: the shift that turns the floor into a rounding."""
     p_half = (ring.moduli[lvl] - 1) >> 1
-    neg = ring._cached(("half_shift", lvl), lambda: _col(
-        [qi - p_half % qi for qi in ring.moduli[:lvl]], ring.device))
-    return p_half, neg
+    return ring._cached(("half_shift", lvl), lambda: (_col([p_half], ring.device), _col(
+        [qi - p_half % qi for qi in ring.moduli[:lvl]], ring.device)))
 
 
 def div_round_by_last_modulus(ring, x: torch.Tensor) -> torch.Tensor:
     """round(x / q_last) (ring/ring_scaling.go:117-149)."""
     lvl = ring.level_of(x)
     p_half, p_half_neg = _half_shift(ring, lvl)
-    last = modred.cred(x[..., -1:, :] + p_half, ring.q_[lvl : lvl + 1])
+    last = mk.add(x[..., -1:, :], p_half, ring.q_[lvl : lvl + 1])
     q, qinv, u0 = _consts(ring, lvl)
-    shifted = modred.bred_add(last + p_half_neg, q, u0)
-    return modred.mred(x[..., :-1, :] + (q - shifted), _rescale_tbl(ring, lvl), q, qinv)
+    shifted = mk.add_bred(last, p_half_neg, q, u0)
+    return mk.mred_diff(x[..., :-1, :], shifted, _rescale_tbl(ring, lvl), q, qinv)
 
 
 def div_round_by_last_modulus_ntt(ring, x: torch.Tensor) -> torch.Tensor:
@@ -79,10 +78,10 @@ def div_round_by_last_modulus_ntt(ring, x: torch.Tensor) -> torch.Tensor:
     lvl = ring.level_of(x)
     p_half, p_half_neg = _half_shift(ring, lvl)
     last_coeff = ring.intt_limbs(x[..., -1:, :], (lvl,))
-    last_coeff = modred.cred(last_coeff + p_half, ring.q_[lvl : lvl + 1])
+    last_coeff = mk.add(last_coeff, p_half, ring.q_[lvl : lvl + 1])
     tmp = ring.ntt_limbs(_bcast_limb(last_coeff, lvl) + p_half_neg, tuple(range(lvl)))
     q, qinv, _ = _consts(ring, lvl)
-    return modred.mred(x[..., :-1, :] + (q - tmp), _rescale_tbl(ring, lvl), q, qinv)
+    return mk.mred_diff(x[..., :-1, :], tmp, _rescale_tbl(ring, lvl), q, qinv)
 
 
 def div_floor_by_last_modulus_many(ring, x: torch.Tensor, nb: int) -> torch.Tensor:

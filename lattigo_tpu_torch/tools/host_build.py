@@ -1,0 +1,108 @@
+"""The arithmetic of the modular kernels built for the host CPU.
+
+``csrc/modred.cu`` and ``csrc/mod_up.cu`` keep their per-element and
+per-column arithmetic outside ``#ifdef __CUDACC__`` (``csrc/modarith.cuh``
+maps ``__umul64hi`` to a 128-bit product there).  :func:`load` compiles a
+source with the host C++ compiler behind a C entry of the same name and
+signature as the CUDA one (the stream is ignored), looping over rows and
+coefficient columns as the kernel's threads do.  A library it returns can
+stand in for the CUDA one behind the real wrappers, so that the CPU tests
+run the kernels' own source on the launch plans of a whole path.  Nothing
+here runs on a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+from lattigo_tpu_torch import _build
+from lattigo_tpu_torch.ops import basis_ext, modred_kernel
+
+HARNESS = {
+    "modred": r"""
+#include "modred.cu"
+template <int OP>
+static void run(const Args& a) {
+    for (long long r = 0; r < a.rows; ++r)
+        for (long long n = 0; n < a.N; ++n) {
+            const long long b = r / a.L, l = r - b * a.L;
+            const auto at = [&](int s) -> u64 {
+                const Operand& o = a.o[s];
+                return o.p[b * o.sb + l * o.sl + n * o.sn];
+            };
+            a.out[r * a.N + n] = apply<OP>(at);
+        }
+}
+typedef void (*Fn)(const Args&);
+static const Fn FNS[N_OPS] = {run<0>, run<1>, run<2>, run<3>, run<4>, run<5>, run<6>, run<7>,
+                              run<8>, run<9>, run<10>, run<11>, run<12>, run<13>, run<14>};
+extern "C" int modred_launch(int op, const long long* desc, void* out, long long B,
+                             long long L, long long N, void* stream) {
+    if (op < 0 || op >= N_OPS || B < 1 || L < 1 || N < 1 || !desc || !out || !desc[4 * Q])
+        return -2;
+    Args a;
+    for (int s = 0; s < SLOTS; ++s)
+        a.o[s] = Operand{(const u64*)desc[4 * s], desc[4 * s + 1], desc[4 * s + 2],
+                         desc[4 * s + 3]};
+    a.out = (u64*)out;
+    a.rows = B * L;
+    a.L = L;
+    a.N = N;
+    FNS[op](a);
+    return 0;
+}
+""",
+    "mod_up": r"""
+#include <vector>
+#include "mod_up.cu"
+extern "C" int mod_up_launch(const void* x, long long sb, long long sl, long long sn,
+                             const void* tab, const void* sel, void* out, long long B,
+                             long long N, int ls, int ld, int k, int centered, void* stream) {
+    if (!x || !tab || !sel || !out || B < 1 || N < 1 || ls < 1 || ld < 1 || k < 1) return -2;
+    std::vector<u64> ys(ls);
+    for (long long b = 0; b < B; ++b)
+        for (long long n = 0; n < N; ++n)
+            mod_up_column((const u64*)x + b * sb + n * sn, sl, (const u64*)tab,
+                          (const int*)sel, ys.data(), 1, (u64*)out + b * k * N + n, N, ls, ld,
+                          k, centered);
+    return 0;
+}
+""",
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _paths(name: str) -> tuple[list[str], str]:
+    deps = [os.path.join(_build.CSRC, name + ".cu"), os.path.join(_build.CSRC, "modarith.cuh"),
+            os.path.abspath(__file__)]
+    return deps, os.path.join(_build.BUILD, "host", f"lib{name}_host.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The host build of ``csrc/<name>.cu`` (``modred`` or ``mod_up``),
+    compiled into ``build/host/`` when missing or older than its sources."""
+    if name in _libs:
+        return _libs[name]
+    deps, lib = _paths(name)
+    if not os.path.exists(lib) or any(os.path.getmtime(d) > os.path.getmtime(lib) for d in deps):
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}"
+        src = tmp + ".cpp"
+        with open(src, "w") as f:
+            f.write(HARNESS[name])
+        try:
+            subprocess.run([os.environ.get("CXX") or "c++", "-std=c++17", "-O1", "-shared",
+                            "-fPIC", "-I", _build.CSRC, "-o", tmp, src],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(tmp, lib)
+        finally:
+            os.remove(src)
+    out = ctypes.CDLL(lib)
+    entry = getattr(out, name + "_launch")
+    entry.argtypes = (modred_kernel if name == "modred" else basis_ext).ARGTYPES
+    entry.restype = ctypes.c_int
+    _libs[name] = out
+    return out
