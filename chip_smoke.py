@@ -6,8 +6,9 @@ Run it from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``lattigo_tpu_torch/csrc`` (the three NTT
-kernels and the two modular kernels: the elementwise modular pass
-``modred.cu`` and the fast basis extension ``mod_up.cu``), holds each kernel
+kernels and the three modular kernels: the elementwise modular pass
+``modred.cu``, the fast basis extension ``mod_up.cu`` and the key switch's
+inner product ``key_switch.cu``), holds each kernel
 bit for bit against its plain PyTorch version at the shapes (and, for the
 modular kernels, the operand layouts) the main paths give it and at a grid
 of other shapes, times them, then drives the BFV
@@ -118,7 +119,7 @@ from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_cheby31, ent
                                      entry_dbfv_pir, entry_dckks_sigmoid, fold, rolled_variants)
 from lattigo_tpu_torch.examples import bfv_riding, ckks_sigmoid, dbfv_pir, dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
-from lattigo_tpu_torch.ops import basis_ext, modred_kernel as mk
+from lattigo_tpu_torch.ops import basis_ext, galois, key_switch, modred_kernel as mk
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
@@ -186,12 +187,22 @@ MODARITH_KERNELS = {
         wrapper=basis_ext.mod_up, route="cuda", source="lattigo_tpu_torch/csrc/mod_up.cu",
         replaces="lattigo_tpu/ops/basis_ext.py:74", note="no TPU kernel: XLA fusion under jax.jit",
     ),
+    "key_switch": dict(
+        wrapper=key_switch.inner_product, route="cuda",
+        source="lattigo_tpu_torch/csrc/key_switch.cu",
+        replaces="lattigo_tpu/models/ckks/evaluator.py:340",
+        note="no TPU kernel: XLA fusion under jax.jit of the key switch's fold",
+    ),
 }
+# the profiler's kernel names (substrings) of the modular kernels
+MODULAR_KERNEL_NAMES = ("modred_kernel", "mod_up_kernel", "key_switch_kernel")
 KERNELS = {**NTT_KERNELS, **MODARITH_KERNELS}
 ROUTE_KERNEL = {"tile": "ntt_tile", "mxu": "ntt_mxu", "passes": "ntt_passes"}
 # kernel names (substrings of the profiler's) of the NTT wrappers' launches
 NTT_KERNEL_NAMES = ("ntt_row", "ntt_cluster", "rows_mm_kernel", "lanes_mm_kernel")
 MAX_OTHER_KERNELS = 200  # CUDA kernels one PN12QP109 forward may launch outside the NTT
+KS_GRID_N = (4096, 16384, 65536)  # ring degrees of the key switch's grid
+KS_TIMED = (65536, 38, 9, 8)  # N, limbs, beta, batch: the PN16QP1761 x 8 fold
 # 32-bit multiplies of each op of the modular pass (a 64 x 64 -> 128 product
 # is 4 for its high word and 3 for its low word), for its operation bound
 MODRED_MULS = dict(cred=0, add=0, sub=0, neg=0, mred=14, mred_constant=14, mred_add=14,
@@ -481,6 +492,10 @@ def modarith_key(rec) -> tuple:
     if name == "mod_up":
         mp, sel, centered = extra
         return name, layouts, id(mp), None if sel is None else tuple(sel), centered
+    if name == "key_switch":
+        ring, limbs, beta, axis, index = extra
+        return (name, layouts, id(ring), limbs, beta, axis,
+                None if index is None else index.data_ptr())
     return name, layouts, tuple((c.data_ptr(), tuple(c.shape), tuple(c.stride())) for c in extra)
 
 
@@ -508,11 +523,42 @@ def distinct_bytes(t: torch.Tensor) -> int:
     return 8 * math.prod(d for d, st in zip(t.shape, t.stride()) if st != 0)
 
 
+def key_switch_case(d, key0, key1, ring, limbs, beta, axis, index):
+    """(kernel call, plain call, the fold of single-op launches: the plain
+    version on the modred kernel, the bytes and 32-bit multiplies the bound
+    counts) of one inner product."""
+    args = (d, key0, key1, ring, limbs, beta)
+    kw = dict(index=index, beta_axis=axis)
+    L, n = len(limbs), d.shape[-1]
+    outputs = 2 * math.prod(d.shape) // beta  # both halves, each [*batch, L, N]
+    key_bytes = 2 * 8 * beta * len(set(limbs)) * n
+    n_bytes = (distinct_bytes(d) + key_bytes + 8 * outputs + 4 * L + 3 * 8 * ring.L
+               + (0 if index is None else 8 * n))
+    reductions = (beta - 1) // (key_switch.PENDING - 1) + 1
+    muls = outputs * beta * 14 + outputs * reductions * 7
+
+    def plain():
+        with all_plain():
+            return key_switch.inner_product_plain(*args, **kw)
+
+    return (lambda: key_switch.inner_product(*args, **kw), plain,
+            lambda: key_switch.inner_product_plain(*args, **kw), n_bytes, muls)
+
+
 def modarith_case(rec, seed: int):
     """A call like ``rec`` on fresh inputs: (kernel call, plain call, the
-    bytes and 32-bit multiplies its bound counts)."""
+    bytes and 32-bit multiplies its bound counts, other calls of the same
+    function to time beside them by name)."""
     name, layouts, extra = rec
     gen = torch.Generator(device=DEV).manual_seed(seed)
+    if name == "key_switch":
+        ring, limbs, beta, axis, index = extra
+        q = ring.moduli[limbs[0]]
+        d, key0, key1 = (strided_words(*lay, gen, [0, q - 1, 1 << 63, (1 << 64) - 1])
+                         for lay in layouts)
+        kernel_fn, plain_fn, fold_fn, n_bytes, muls = key_switch_case(
+            d, key0, key1, ring, limbs, beta, axis, index)
+        return kernel_fn, plain_fn, n_bytes, muls, {"modred_fold": fold_fn}
     if name == "mod_up":
         mp, sel, centered = extra
         q = mp.src[0]
@@ -526,7 +572,7 @@ def modarith_case(rec, seed: int):
         muls = cols * (ls * 21 + k * (14 * (ls + 1) + 7 * (ls // 6 + 1)))
         return (lambda: basis_ext.mod_up(x, mp, sel, centered=centered),
                 lambda: basis_ext.mod_up_plain(x, mp, sel, centered=centered),
-                distinct_bytes(x) + out_bytes + mp.packed_.numel() * 8, muls)
+                distinct_bytes(x) + out_bytes + mp.packed_.numel() * 8, muls, {})
     _, slots, plain = mk.OPS[name]
     consts = iter(extra)
     q = int(u.to_u64(extra[0].reshape(-1)[:1])[0])
@@ -535,7 +581,7 @@ def modarith_case(rec, seed: int):
            for slot, lay in zip(slots, layouts)]
     numel = math.prod(torch.broadcast_shapes(*(t.shape for t in ops)))
     return (lambda: mk.modarith(name, *ops), lambda: plain(*ops),
-            sum(distinct_bytes(t) for t in ops) + 8 * numel, MODRED_MULS[name] * numel)
+            sum(distinct_bytes(t) for t in ops) + 8 * numel, MODRED_MULS[name] * numel, {})
 
 
 def max_abs_err(got, want) -> int:
@@ -549,7 +595,8 @@ def check_modarith(label: str) -> list[dict]:
     """Every distinct call of the modular kernels that PENDING_MODARITH
     holds, on fresh random words in the same layouts (the edge words 0,
     q - 1, 2^63 and 2^64 - 1 among them), held bit for bit against the
-    plain version; the largest of each op (and of mod_up) timed: ``ms``,
+    plain version; the largest of each op (and of mod_up and key_switch)
+    timed: ``ms``,
     ``device_ms``, ``plain_ms`` and ``bound_ms`` (the larger of the bytes
     over the memory rate and the 32-bit multiplies over their rate).  A
     call an earlier phase checked is not checked again (``measured_by``)."""
@@ -558,7 +605,8 @@ def check_modarith(label: str) -> list[dict]:
         key = modarith_key(rec)
         groups.setdefault(key, [rec, 0])[1] += 1
     PENDING_MODARITH.clear()
-    out_numel = lambda rec: math.prod(torch.broadcast_shapes(*(lay[0] for lay in rec[1])))
+    out_numel = lambda rec: math.prod(rec[1][0][0] if rec[0] == "key_switch" else
+                                      torch.broadcast_shapes(*(lay[0] for lay in rec[1])))
     largest = {}
     for key, (rec, _) in groups.items():
         if key[0] not in largest or out_numel(rec) > out_numel(groups[largest[key[0]]][0]):
@@ -569,18 +617,22 @@ def check_modarith(label: str) -> list[dict]:
             rows.append(dict(MOD_CHECKED[key][0], calls=n_calls))
             continue
         name = rec[0]
-        kernel_fn, plain_fn, n_bytes, muls = modarith_case(rec, seed=5000 + i)
+        kernel_fn, plain_fn, n_bytes, muls, others = modarith_case(rec, seed=5000 + i)
         err = max_abs_err(kernel_fn(), plain_fn())
         if err:
             fail(f"{label}: the modular kernel ({name}) disagrees with its plain version at "
                  f"{rec[1]}")
-        row = dict(kernel="mod_up" if name == "mod_up" else "modred", op=name,
+        row = dict(kernel=name if name in ("mod_up", "key_switch") else "modred",
+                   op="inner_product" if name == "key_switch" else name,
                    layouts=[[list(sh), list(st)] for sh, st in rec[1]], max_abs_err=err,
                    calls=n_calls, measured_by=label, timed=largest[name] == key)
         if name == "mod_up":
             mp, sel, centered = rec[2]
             row.update(ls=len(mp.src), ld=len(mp.dst), sel=None if sel is None else list(sel),
                        centered=centered)
+        if name == "key_switch":
+            ring, limbs, beta, axis, index = rec[2]
+            row.update(beta=beta, beta_axis=axis, limbs=list(limbs), index=index is not None)
         if row["timed"]:
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = muls / INT32_MULS_PER_S * 1e3
@@ -588,6 +640,9 @@ def check_modarith(label: str) -> list[dict]:
                        plain_ms=time_ms(plain_fn, reps=5), bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        shape=list(kernel_fn().shape))
+            for other, fn in others.items():
+                row.update({f"{other}_ms": time_ms(fn, reps=5),
+                            f"{other}_device_ms": device_time(fn)})
         MOD_CHECKED[key] = row, rec
         rows.append(row)
     torch.cuda.synchronize()
@@ -853,7 +908,7 @@ def modarith_cases(results, seed: int) -> list[dict]:
                                         centered=centered,
                                         sel=None if sel is None else list(sel), err=err))
             if n == 65536:
-                kernel_fn, plain_fn, n_bytes, muls = modarith_case(
+                kernel_fn, plain_fn, n_bytes, muls, _ = modarith_case(
                     ("mod_up", ((shape, dense(shape)),), (mp, None, False)),
                     seed + ls)
                 t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MULS_PER_S * 1e3
@@ -863,6 +918,100 @@ def modarith_cases(results, seed: int) -> list[dict]:
                                   bound_by="bytes" if t_bytes >= t_ops else "operations"))
         torch.cuda.empty_cache()
     return times
+
+
+def primes_below_2_61(n: int, count: int) -> list[int]:
+    """Primes == 1 mod 2N just below 2^61: nine products of q - 1 exceed
+    2^64, so a fold that skips its reduction overflows."""
+    out, x = [], (1 << 61) - 2 * n + 1
+    while len(out) < count:
+        if nt.is_prime(x):
+            out.append(x)
+        x -= 2 * n
+    return out
+
+
+def key_switch_operands(ring, ql, beta, batch, layout, fill, gen):
+    """(d, key0, key1, beta_axis) of one inner product on the card: d in the
+    BFV ([beta, *batch, L, N]) or CKKS ([*batch, beta, L, N]) layout over
+    the ring rows ``ql``, both key halves [beta + 1, ring.L, N].  ``fill``: ``random`` (64-bit words,
+    and in coefficients 0..35 of every block the edge words 0, 1, q - 1, q,
+    2^63 and 2^64 - 1 of each limb's modulus, a key word against a d word in
+    every pairing) or ``max_products`` (every product q - 1)."""
+    n = ring.n
+    rand = lambda shape: torch.randint(-(1 << 63), (1 << 63) - 1, shape, dtype=torch.int64,
+                                       device=DEV, generator=gen)
+    d = rand((*batch, beta, len(ql), n))
+    keys = [rand((beta + 1, ring.L, n)) for _ in range(2)]
+    for l, r in enumerate(ql):
+        q = ring.moduli[r]
+        edge = np.array([0, 1, q - 1, q, 1 << 63, (1 << 64) - 1], dtype=np.uint64)
+        if fill == "max_products":  # mred(q - 1, 2^64 mod q) = q - 1
+            d[..., l, :] = u.from_u64(np.array([(1 << 64) % q], dtype=np.uint64), DEV)
+            for k in keys:
+                k[:, r, :] = u.from_u64(np.array([q - 1], dtype=np.uint64), DEV)
+        else:
+            d[..., l, :36] = u.from_u64(np.repeat(edge, 6), DEV)
+            for h, k in enumerate(keys):
+                k[:, r, :36] = u.from_u64(np.tile(np.roll(edge, h), 6), DEV)
+    if layout == "bfv":
+        return d.movedim(-3, 0).contiguous(), *keys, 0
+    return d, *keys, -3
+
+
+def key_switch_cases(results, seed: int) -> list[dict]:
+    """The key switch's inner product against its plain version on a grid,
+    on primes just below 2^61 with a non-prefix limb map: at
+    N = 4096 every beta of 1, 2, 6, 7, 8, 9 (across the 7-product
+    reduction) in both layouts, with the key broadcast over batches (),
+    (3,) and (2, 4), with and without a Galois index, on edge and random
+    words, and on words whose every product is q - 1; at N = 16384 and
+    65536 a few of them; then the PN16QP1761 x 8 shape ([8, 9, 38, 65536],
+    prefix map) timed beside the plain version, the fold of single-op
+    launches (the plain version on the modred kernel) and the bound.
+    Returns the timing rows."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    small, mid, large = KS_GRID_N
+    grid = [(small, beta, layout, batch, index, "random")
+            for beta in (1, 2, 6, 7, 8, 9) for layout in ("bfv", "ckks")
+            for batch in ((), (3,), (2, 4)) for index in (False, True)]
+    grid += [(small, beta, layout, (3,), False, "max_products")
+             for beta in (1, 2, 6, 7, 8, 9) for layout in ("bfv", "ckks")]
+    grid += [(mid, beta, layout, (2, 4), index, "random")
+             for beta in (2, 9) for layout in ("bfv", "ckks") for index in (False, True)]
+    grid += [(large, 9, "ckks", (8,), False, "random"), (large, 9, "bfv", (3,), True, "random"),
+             (large, 7, "ckks", (), True, "max_products")]
+    rings = {}
+    for n, beta, layout, batch, index, fill in grid:
+        if n not in rings:
+            rings[n] = Ring(n, primes_below_2_61(n, 6), compute_ntt_tables=False, device=DEV)
+        ring = rings[n]
+        ql = (5, 0, 3, 1)
+        d, k0, k1, axis = key_switch_operands(ring, ql, beta, batch, layout, fill, gen)
+        idx = galois.ntt_index(5, n, DEV) if index else None
+        kernel_fn, plain_fn, _, _, _ = key_switch_case(d, k0, k1, ring, ql, beta, axis, idx)
+        results.append(dict(kernel="key_switch", n=n, beta=beta, layout=layout, batch=list(batch),
+                            index=index, fill=fill, err=max_abs_err(kernel_fn(), plain_fn())))
+        del d, k0, k1
+    torch.cuda.empty_cache()
+    n, L, beta, batch = KS_TIMED
+    ring = Ring(n, primes_below_2_61(n, L), compute_ntt_tables=False, device=DEV)
+    limbs = tuple(range(L))
+    d, k0, k1, axis = key_switch_operands(ring, limbs, beta, (batch,), "ckks", "random", gen)
+    kernel_fn, plain_fn, fold_fn, n_bytes, muls = key_switch_case(
+        d, k0, k1, ring, limbs, beta, axis, None)
+    err = max_abs_err(kernel_fn(), plain_fn())
+    results.append(dict(kernel="key_switch", n=n, beta=beta, layout="ckks", batch=[batch],
+                        index=False, fill="random", limbs=L, err=err))
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MULS_PER_S * 1e3
+    row = dict(kernel="key_switch", shape=list(d.shape), ms=time_ms(kernel_fn),
+               device_ms=device_time(kernel_fn), plain_ms=time_ms(plain_fn, reps=3),
+               modred_fold_ms=time_ms(fold_fn, reps=5), modred_fold_device_ms=device_time(fold_fn),
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=n_bytes, muls=muls)
+    del d, k0, k1
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def phase_kernels() -> None:
@@ -927,6 +1076,7 @@ def phase_kernels() -> None:
             del ring
             torch.cuda.empty_cache()
     modarith_times = modarith_cases(results, seed)
+    key_switch_times = key_switch_cases(results, seed + 1)
     bad = [r for r in results if r["err"] != 0]
     if any(r["max_abs_err"] != 0 for r in row_times + passes_times):
         bad.append("timing shapes")
@@ -935,7 +1085,8 @@ def phase_kernels() -> None:
          row_plans={1 << e: {"72x3": tile_ntt.launch_plan(1 << e, 216)._asdict(),
                              "full": tile_ntt.launch_plan(1 << e)._asdict()} for e in range(8, 15)},
          passes_plans={1 << e: pallas_ntt.launch_plan(1 << e)._asdict() for e in range(10, 18)},
-         row_times=row_times, passes_times=passes_times, modarith_times=modarith_times)
+         row_times=row_times, passes_times=passes_times, modarith_times=modarith_times,
+         key_switch_times=key_switch_times)
     if bad:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
 
@@ -944,9 +1095,9 @@ def phase_small() -> dict:
     """The port tests' log N = 8 sets on the card, every object made with
     ``device="cuda"`` (no index): BFV encode, encrypt, ``mul``,
     ``relinearize``, decrypt, decode, exact; CKKS ``mul_relin``,
-    ``rescale``, ``rotate_columns(1)``, decrypt, decode, at a median of at
-    least MIN_PREC bits; both equal bit for bit to the all-plain route, and
-    the row kernel's launches counted."""
+    ``rescale``, ``rotate_columns(1)``, ``rotate_hoisted([1])``, decrypt,
+    decode, at a median of at least MIN_PREC bits; both equal bit for bit
+    to the all-plain route, and the row kernel's launches counted."""
     dev = "cuda"
     out = {}
     params = bfv.Parameters(**SMALL_BFV).gen_from_log_moduli()
@@ -989,15 +1140,16 @@ def phase_small() -> dict:
 
     def path():
         prod = ev.rescale(ev.mul_relin(ca, cb, rlk))
-        return prod, ev.rotate_columns(prod, 1, rot)
+        return prod, ev.rotate_columns(prod, 1, rot), ev.rotate_hoisted(prod, [1], rot)[1]
 
     reset_counts()
-    prod, turned = path()
+    prod, turned, hoisted = path()
     torch.cuda.synchronize()
     counts = read_counts()
     dec = ckks.Decryptor(params, sk, device=dev)
     precision = {}
-    for name, ct, want in (("rescale", prod, va * vb), ("rotate", turned, np.roll(va * vb, -1))):
+    for name, ct, want in (("rescale", prod, va * vb), ("rotate", turned, np.roll(va * vb, -1)),
+                           ("rotate_hoisted", hoisted, np.roll(va * vb, -1))):
         got = enc.decode(dec.decrypt(ct))
         if got.shape != (params.slots,) or not np.isfinite(got).all():
             fail(f"small: CKKS {name} decodes to {got.shape} with non-finite values")
@@ -1006,7 +1158,7 @@ def phase_small() -> dict:
             fail(f"small: CKKS {name} has median precision {precision[name]:.2f} < {MIN_PREC}")
     with all_plain():
         refs = path()
-    for ct, ref in zip((prod, turned), refs):
+    for ct, ref in zip((prod, turned, hoisted), refs):
         if ref.scale != ct.scale or not all(torch.equal(a, b) for a, b in zip(ct.value, ref.value)):
             fail("small: the CKKS path differs from the all-plain route")
     out["ckks"] = dict(n=params.n, counts=counts, precision_bits=precision)
@@ -1038,7 +1190,8 @@ def drive(params_idx: int, batch: tuple, label: str) -> dict:
     out = forward(ct0, ct1, swk)
     torch.cuda.synchronize()
     counts = read_counts()
-    copies = dict(modred=mk.modarith.copies, mod_up=basis_ext.mod_up.copies)
+    copies = dict(modred=mk.modarith.copies, mod_up=basis_ext.mod_up.copies,
+                  key_switch=key_switch.inner_product.copies)
 
     enc = bfv.Encoder(params, device=DEV)
     dec = bfv.Decryptor(params, forward.secret_key, device=DEV)
@@ -1058,7 +1211,7 @@ def drive(params_idx: int, batch: tuple, label: str) -> dict:
                 setup_and_first_forward_counts=pipeline_before, setup_s=setup_s,
                 first_forward_s=first_forward_s, forward_ms=forward_ms, plan_copies=copies,
                 cuda_kernels=cuda_kernels(lambda: forward(ct0, ct1, swk),
-                                          counts["modred"] + counts["mod_up"]),
+                                          sum(counts[k] for k in MODARITH_KERNELS)),
                 shapes=measure_calls(calls, label))
 
 
@@ -1091,10 +1244,12 @@ def phase_ckks() -> dict:
     counts = read_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     want_counts = {k: 0 for k in counts}
-    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4, modred=19, mod_up=11)
+    # the key switch's fold: one key_switch launch for the 2 x 3 modred
+    # launches (a product and two reductions a key half) it replaces
+    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4, modred=13, mod_up=11, key_switch=1)
     if counts != want_counts:
         fail(f"{label}: launch counts of one forward are {counts}, expected 4 + 4 ntt_passes, "
-             "19 modular-pass and 11 basis-extension launches")
+             "13 modular-pass, 11 basis-extension and 1 key-switch launches")
 
     ev, rot_keys = forward.evaluator, forward.rotation_keys
     rot = ev.rotate_columns(out, 1, rot_keys)
@@ -2061,7 +2216,7 @@ def cuda_kernels(fn, modular_launches: int) -> dict:
         count = lambda names: sum(e.count for e in kernels if any(n in e.key for n in names))
         total = sum(e.count for e in kernels)
         ntt = count(NTT_KERNEL_NAMES)
-        modular = count(("modred_kernel", "mod_up_kernel"))
+        modular = count(MODULAR_KERNEL_NAMES)
         row = dict(total=total, ntt=ntt, outside_ntt=total - ntt, modular=modular,
                    copies=sum(e.count for e in copies), complete=modular == modular_launches,
                    attempts=attempt)
@@ -2083,7 +2238,8 @@ def trace(label: str, call, **tags) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time")
-    groups = {"ntt": NTT_KERNEL_NAMES, "modular": ("modred_kernel", "mod_up_kernel")}
+    groups = {"ntt": NTT_KERNEL_NAMES, "modular": ("modred_kernel", "mod_up_kernel"),
+              "key_switch": ("key_switch_kernel",)}
     by_group = {g: dict(count=0, ms=0.0) for g in (*groups, "other")}
     for e in kernels:
         g = next((g for g, names in groups.items() if any(n in e.key for n in names)), "other")
@@ -2204,15 +2360,18 @@ def main() -> None:
     if "main_path" in phases:
         res = drive(bfv.PN12QP109, (), "PN12QP109")
         emit("main_path", **res)
+        # the key switch's fold is one key_switch launch in place of 6
+        # modred launches (a product a block and key half, 2 x 2, and a
+        # reduction a key half)
         if res["counts"] != {"ntt_tile_fwd": 1, "ntt_tile_inv": 2, "ntt_mxu_fwd": 6,
                              "ntt_mxu_inv": 2, "ntt_passes_fwd": 0, "ntt_passes_inv": 0,
-                             "modred": 28, "mod_up": 8}:
+                             "modred": 22, "mod_up": 8, "key_switch": 1}:
             fail(f"launch counts of one forward are {res['counts']}, expected 8 four-step, "
-                 "3 row, 28 modular-pass and 8 basis-extension launches")
+                 "3 row, 22 modular-pass, 8 basis-extension and 1 key-switch launches")
         if res["cuda_kernels"]["outside_ntt"] > MAX_OTHER_KERNELS:
             fail(f"one forward launched {res['cuda_kernels']['outside_ntt']} CUDA kernels "
                  f"outside the NTT wrappers, more than {MAX_OTHER_KERNELS}")
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "modred", "mod_up"))
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", *MODARITH_KERNELS))
     if "full_width" in phases:
         res = drive(bfv.PN14QP438, (args.batch,), "PN14QP438")
         emit("full_width", **res)
@@ -2223,7 +2382,7 @@ def main() -> None:
     if "ckks" in phases:
         res = phase_ckks()
         emit("ckks", **res)
-        summary += kernel_rows(res, ("ntt_passes", "modred", "mod_up"))
+        summary += kernel_rows(res, ("ntt_passes", *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "bfv15" in phases:
         res = drive(bfv.PN15QP880, (), "PN15QP880")
@@ -2235,7 +2394,7 @@ def main() -> None:
     if "dbfv" in phases:
         res = phase_dbfv()
         emit("dbfv", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "modred", "mod_up"))
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "rotate" in phases:
         res = phase_rotate(args.batch)
@@ -2245,7 +2404,7 @@ def main() -> None:
     if "dckks" in phases:
         res = phase_dckks()
         emit("dckks", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "modred", "mod_up"))
+        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "parallel" in phases:
         res = phase_parallel()
@@ -2268,7 +2427,7 @@ def main() -> None:
     if "jit" in phases:
         for res in phase_jit():
             emit("jit", **{k: v for k, v in res.items() if k != "kernels"})
-            summary += kernel_rows(res, (*res["kernels"], "modred", "mod_up"))
+            summary += kernel_rows(res, (*res["kernels"], *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "profile" in phases:
         phase_profile_replays()

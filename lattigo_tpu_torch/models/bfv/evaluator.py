@@ -14,7 +14,7 @@ import torch
 
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.models.bfv.elements import Ciphertext, polys_of
-from lattigo_tpu_torch.ops import galois
+from lattigo_tpu_torch.ops import galois, key_switch
 
 
 def _hamming(x: int) -> int:
@@ -149,19 +149,10 @@ class Evaluator:
         c2_ntt = ctx.ring_q.ntt(cx)
         d = self._decompose_ntt(cx, c2_ntt)  # [beta, ..., L_QP, N]
 
-        p0 = p1 = None
-        pending = 0
-        for i in range(ctx.decomposer.beta):
-            t0 = rqp.mul_coeffs_montgomery(swk.key0[i], d[i])
-            t1 = rqp.mul_coeffs_montgomery(swk.key1[i], d[i])
-            p0 = t0 if p0 is None else p0 + t0
-            p1 = t1 if p1 is None else p1 + t1
-            pending += 1
-            if pending == 7:
-                p0, p1 = rqp.reduce(p0), rqp.reduce(p1)
-                pending = 1
-        p0 = rqp.intt(rqp.reduce(p0))
-        p1 = rqp.intt(rqp.reduce(p1))
+        limbs = tuple(range(rqp.L))
+        p = key_switch.inner_product(d, swk.key0, swk.key1, rqp, limbs, ctx.decomposer.beta,
+                                     beta_axis=0)
+        p0, p1 = rqp.intt(p[0]), rqp.intt(p[1])
         nq = ctx.ring_q.L
         bx = ctx.basis_q_p
         p0 = bx.mod_down_split_pq(p0[..., :nq, :], p0[..., nq:, :])

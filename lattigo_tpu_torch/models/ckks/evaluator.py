@@ -23,7 +23,7 @@ import torch
 
 from lattigo_tpu_torch.models.ckks.context import get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, drop_to_level, polys_of
-from lattigo_tpu_torch.ops import galois, number_theory as nt, scaling
+from lattigo_tpu_torch.ops import galois, key_switch, number_theory as nt, scaling
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.tjit import GraphPool, tjit
@@ -272,33 +272,6 @@ class Evaluator:
         limbs = tuple(range(lvl + 1)) + tuple(range(dec.n_q, dec.n_q + dec.n_p))
         return self.ctx.ring_qp.ntt_limbs(d, limbs), limbs
 
-    def _key_planes(self, swk, beta: int, lvl: int):
-        """Stacked [beta, (lvl+1)+n_p, N] Q+P key planes of both key halves."""
-        nq = len(self.params.qi)
-        sel = lambda k: torch.cat([k[:beta, : lvl + 1], k[:beta, nq:]], dim=-2)
-        return sel(swk.key0), sel(swk.key1)
-
-    def _inner_product(self, d: torch.Tensor, limbs, swk, beta: int, lvl: int):
-        """sum_i key_i (.) d_i with the reference's lazy-reduction discipline
-        (reduce every 7 accumulated [0,q) products: ckks/evaluator.go:1536),
-        folding over the stacked block axis of one batched Montgomery mul."""
-        rqp = self.ctx.ring_qp
-        k0, k1 = self._key_planes(swk, beta, lvl)
-
-        def fold(k):
-            t = rqp.mul_coeffs_montgomery_limbs(k, d, limbs)
-            acc = t[..., 0, :, :]
-            pending = 1
-            for i in range(1, beta):
-                acc = acc + t[..., i, :, :]
-                pending += 1
-                if pending == 7:
-                    acc = rqp.reduce_limbs(acc, limbs)
-                    pending = 1
-            return rqp.reduce_limbs(acc, limbs)
-
-        return fold(k0), fold(k1)
-
     def _mod_down(self, lvl: int, a: torch.Tensor) -> torch.Tensor:
         nqs = lvl + 1
         return self.ctx.basis_q_p.mod_down_split_ntt_pq(a[..., :nqs, :], a[..., nqs:, :])
@@ -306,9 +279,12 @@ class Evaluator:
     def _switch_keys_core(self, lvl: int, cx_ntt: torch.Tensor, swk):
         c2_coeff = self.ctx.ring_q.intt(cx_ntt)
         d, limbs = self._decompose_stacked(lvl, c2_coeff)
-        a0, a1 = self._inner_product(d, limbs, swk, self.params.beta(lvl), lvl)
+        # sum_i key_i (.) d_i, both key halves, with the reference's lazy
+        # reduction (every 7 accumulated products: ckks/evaluator.go:1536)
+        a = key_switch.inner_product(d, swk.key0, swk.key1, self.ctx.ring_qp, limbs,
+                                     self.params.beta(lvl))
         del d
-        return self._mod_down(lvl, a0), self._mod_down(lvl, a1)
+        return self._mod_down(lvl, a[0]), self._mod_down(lvl, a[1])
 
     # ---- rotations (ckks/evaluator.go:1201-1473) -------------------------
 
@@ -364,10 +340,11 @@ class Evaluator:
             if k not in rot_keys.left:
                 raise ValueError(f"missing rotation key {k}")
             gal_el = ctx.gal_el_rot_col_left[k]
-            a0, a1 = self._inner_product(galois.permute_ntt(d, gal_el), limbs,
-                                         rot_keys.left[k], beta, lvl)
-            c0 = rq.add(galois.permute_ntt(ct.value[0], gal_el), self._mod_down(lvl, a0))
-            out[k] = Ciphertext([c0, self._mod_down(lvl, a1)], ct.scale)
+            swk = rot_keys.left[k]  # d read through the permutation, not permuted
+            a = key_switch.inner_product(d, swk.key0, swk.key1, ctx.ring_qp, limbs, beta,
+                                         index=galois.ntt_index(gal_el, ctx.n, d.device))
+            c0 = rq.add(galois.permute_ntt(ct.value[0], gal_el), self._mod_down(lvl, a[0]))
+            out[k] = Ciphertext([c0, self._mod_down(lvl, a[1])], ct.scale)
         return out
 
 

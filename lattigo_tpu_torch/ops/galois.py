@@ -69,10 +69,17 @@ def _on_device(kind: str, gal_el: int, n: int, device: torch.device):
     return _device_tables[key]
 
 
+def ntt_index(gal_el: int, n: int, device) -> torch.Tensor:
+    """:func:`permute_ntt_index` as an int64 vector on ``device``, cached:
+    coefficient k of the permuted poly is coefficient ``index[k]`` of the
+    input."""
+    return _on_device("ntt", gal_el, n, torch.device(device))
+
+
 def permute_ntt(x: torch.Tensor, gal_el: int) -> torch.Tensor:
     """NTT-domain automorphism: one gather along the coefficient axis
     (ring/ring_galois.go:55-103)."""
-    return torch.index_select(x, -1, _on_device("ntt", gal_el, x.shape[-1], x.device))
+    return torch.index_select(x, -1, ntt_index(gal_el, x.shape[-1], x.device))
 
 
 def permute(ring, x: torch.Tensor, gal_el: int) -> torch.Tensor:

@@ -36,7 +36,8 @@ from lattigo_tpu_torch.ops import modred
 T = torch.Tensor
 
 # Route CUDA tensors to the plain version instead of the kernels (this
-# module's and basis_ext.mod_up's): chip_smoke.py's before / after trace.
+# module's, basis_ext.mod_up's and key_switch.inner_product's):
+# chip_smoke.py's before / after trace.
 FORCE_PLAIN = False
 
 SLOTS = ("x", "y", "z", "q", "qinv", "u0", "u1")  # csrc/modred.cu Slot
@@ -120,19 +121,22 @@ def launch_plan(operands) -> Plan:
     return Plan(shape, (math.prod(full[:-2]), full[-2], full[-1]), tuple(ops), copies)
 
 
-def _takes_kernel(operands) -> bool:
-    """Whether a call on ``operands`` launches the kernel: all on one CUDA
-    device as int64 (unless ``FORCE_PLAIN``); all on the CPU takes the plain
-    version; anything else raises."""
+def takes_kernel(operands, what: str) -> bool:
+    """Whether a call of ``what`` on ``operands`` launches its kernel: all
+    on one CUDA device as int64 (unless ``FORCE_PLAIN``); all on the CPU
+    takes the plain version; anything else raises."""
     devices = {t.device for t in operands}
     if devices == {torch.device("cpu")}:
         return False
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError("the modular pass takes tensors on one device, got "
-                         f"{sorted(map(str, devices))}")
+        raise ValueError(f"{what} takes tensors on one device, got {sorted(map(str, devices))}")
     if any(t.dtype != torch.int64 for t in operands):
-        raise TypeError("the modular pass takes int64 tensors (uint64 bit patterns)")
+        raise TypeError(f"{what} takes int64 tensors (uint64 bit patterns)")
     return not FORCE_PLAIN
+
+
+def _takes_kernel(operands) -> bool:
+    return takes_kernel(operands, "the modular pass")
 
 
 _lib = None
@@ -181,11 +185,13 @@ _RECORD: list | None = None
 @contextlib.contextmanager
 def record():
     """Yields a list that collects ``(name, layouts, constants)`` for every
-    launch of the modular pass and of ``basis_ext.mod_up`` in the block:
-    ``layouts`` the operands' ``(shape, stride)``; ``constants`` this
-    kernel's per-limb constant operands (q, qinv, u0, u1) themselves (no
-    copy: a capture may be recording), or ``mod_up``'s ``(params, dst_sel,
-    centered)``.  The calls a path gives the kernels."""
+    launch of the modular pass, of ``basis_ext.mod_up`` and of
+    ``key_switch.inner_product`` in the block: ``layouts`` the operands'
+    ``(shape, stride)``; ``constants`` this kernel's per-limb constant
+    operands (q, qinv, u0, u1) themselves (no copy: a capture may be
+    recording), ``mod_up``'s ``(params, dst_sel, centered)``, or the key
+    switch's ``(ring, limbs, beta, beta_axis, index)``.  The
+    calls a path gives the kernels."""
     global _RECORD
     prev, _RECORD = _RECORD, []
     try:

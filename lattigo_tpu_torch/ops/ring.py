@@ -75,8 +75,8 @@ def distinct_transforms(calls) -> list[tuple]:
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset: the NTT kernels by
     direction (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...),
-    then the modular pass (``modred``) and the basis extension
-    (``mod_up``)."""
+    then the modular pass (``modred``), the basis extension (``mod_up``)
+    and the key switch's inner product (``key_switch``)."""
     out = {}
     for name, w in _kernel_wrappers().items():
         out[name + "_fwd"] = w.launches - w.inverse_launches
@@ -101,9 +101,10 @@ def _kernel_wrappers() -> dict:
 
 
 def _modarith_wrappers() -> dict:
-    from lattigo_tpu_torch.ops import basis_ext
+    from lattigo_tpu_torch.ops import basis_ext, key_switch
 
-    return {"modred": mk.modarith, "mod_up": basis_ext.mod_up}
+    return {"modred": mk.modarith, "mod_up": basis_ext.mod_up,
+            "key_switch": key_switch.inner_product}
 
 
 def _tbl(vals, shape, device) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The arithmetic of the modular kernels built for the host CPU.
 
-``csrc/modred.cu`` and ``csrc/mod_up.cu`` keep their per-element and
-per-column arithmetic outside ``#ifdef __CUDACC__`` (``csrc/modarith.cuh``
-maps ``__umul64hi`` to a 128-bit product there).  :func:`load` compiles a
+``csrc/modred.cu``, ``csrc/mod_up.cu`` and ``csrc/key_switch.cu`` keep their
+per-element, per-column and per-tile arithmetic outside ``#ifdef
+__CUDACC__`` (``csrc/modarith.cuh`` maps ``__umul64hi`` to a 128-bit
+product there).  :func:`load` compiles a
 source with the host C++ compiler behind a C entry of the same name and
 signature as the CUDA one (the stream is ignored), looping over rows and
 coefficient columns as the kernel's threads do.  A library it returns can
@@ -18,7 +19,7 @@ import os
 import subprocess
 
 from lattigo_tpu_torch import _build
-from lattigo_tpu_torch.ops import basis_ext, modred_kernel
+from lattigo_tpu_torch.ops import basis_ext, key_switch, modred_kernel
 
 HARNESS = {
     "modred": r"""
@@ -70,6 +71,32 @@ extern "C" int mod_up_launch(const void* x, long long sb, long long sl, long lon
     return 0;
 }
 """,
+    "key_switch": r"""
+#include "key_switch.cu"
+static void run(int tile, const Args& a, long long b0, int l, long long n) {
+    switch (tile) {
+        case 1: key_switch_tile<1>(a, b0, l, n); break;
+        case 2: key_switch_tile<2>(a, b0, l, n); break;
+        case 4: key_switch_tile<4>(a, b0, l, n); break;
+        default: key_switch_tile<MAX_TILE>(a, b0, l, n);
+    }
+}
+extern "C" int key_switch_launch(const void* d, const long long* dstr, const void* key0,
+                                 const void* key1, const long long* kstr, const void* q,
+                                 const void* qinv, const void* u0, const void* ql,
+                                 const void* idx, void* out, long long B, long long N, int L,
+                                 int beta, void* stream) {
+    Args a;
+    if (make_args(a, d, dstr, key0, key1, kstr, q, qinv, u0, ql, idx, out, B, N, L, beta))
+        return -2;
+    const int tile = tile_of(B);
+    for (long long b0 = 0; b0 < B; b0 += tile)
+        for (int l = 0; l < L; ++l)
+            for (long long n = 0; n < N; ++n)
+                run(tile, a, b0, l, n);
+    return 0;
+}
+""",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -82,8 +109,9 @@ def _paths(name: str) -> tuple[list[str], str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The host build of ``csrc/<name>.cu`` (``modred`` or ``mod_up``),
-    compiled into ``build/host/`` when missing or older than its sources."""
+    """The host build of ``csrc/<name>.cu`` (``modred``, ``mod_up`` or
+    ``key_switch``), compiled into ``build/host/`` when missing or older
+    than its sources."""
     if name in _libs:
         return _libs[name]
     deps, lib = _paths(name)
@@ -102,7 +130,8 @@ def load(name: str) -> ctypes.CDLL:
             os.remove(src)
     out = ctypes.CDLL(lib)
     entry = getattr(out, name + "_launch")
-    entry.argtypes = (modred_kernel if name == "modred" else basis_ext).ARGTYPES
+    entry.argtypes = {"modred": modred_kernel, "mod_up": basis_ext,
+                      "key_switch": key_switch}[name].ARGTYPES
     entry.restype = ctypes.c_int
     _libs[name] = out
     return out
