@@ -7,8 +7,10 @@ import torch
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.models.bfv.elements import Ciphertext, Plaintext
 from lattigo_tpu_torch.ops import samplers
+from lattigo_tpu_torch.utils import profiling
 
 
+@profiling.spanned("bfv")
 class Encryptor:
     """pk path: ct = (pk0*u + e0 + m, pk1*u + e1), sampled in QP then divided
     by P via ModDown (bfv/encryptor.go:169-223); the fast path samples in Q.
@@ -67,6 +69,7 @@ class Encryptor:
         return Ciphertext([ctx.ring_q.add(c0, pt.value), a_coeff])
 
 
+@profiling.spanned("bfv")
 class Decryptor:
     """NTT-domain Horner over the ciphertext degree (bfv/decryptor.go:55-73)."""
 

@@ -15,12 +15,14 @@ import torch
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.models.bfv.elements import Ciphertext, polys_of
 from lattigo_tpu_torch.ops import galois, key_switch
+from lattigo_tpu_torch.utils import profiling
 
 
 def _hamming(x: int) -> int:
     return bin(x).count("1")
 
 
+@profiling.spanned("bfv")
 class Evaluator:
     def __init__(self, params, device=None):
         self.ctx = get_context(params, device)

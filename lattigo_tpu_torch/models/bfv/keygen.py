@@ -17,6 +17,7 @@ import torch
 
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.ops import galois, samplers
+from lattigo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -47,6 +48,7 @@ class RotationKeys:
     row: SwitchingKey | None = None
 
 
+@profiling.spanned("bfv")
 class KeyGenerator:
     """bfv/keygen.go:8-17; every draw comes from one explicit
     ``torch.Generator`` on the context's device, seeded with ``seed``."""

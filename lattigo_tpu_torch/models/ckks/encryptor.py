@@ -6,8 +6,10 @@ from __future__ import annotations
 from lattigo_tpu_torch.models.ckks.context import get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, Plaintext, drop_to_level
 from lattigo_tpu_torch.ops import samplers
+from lattigo_tpu_torch.utils import profiling
 
 
+@profiling.spanned("ckks")
 class Encryptor:
     """pk path: ct = (pk0*u + e0 + m, pk1*u + e1), sampled in QP and divided
     by P (ckks/encryptor.go:179-237); the fast path samples in Q.  sk path:
@@ -82,6 +84,7 @@ class Encryptor:
         return Ciphertext([ctx.ring_q.add(c0, pt.value), c1], pt.scale)
 
 
+@profiling.spanned("ckks")
 class Decryptor:
     """NTT-domain Horner over the ciphertext degree (ckks/decryptor.go:53-79)."""
 

@@ -27,6 +27,7 @@ from lattigo_tpu_torch.ops import galois, key_switch, number_theory as nt, scali
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.tjit import GraphPool, tjit
+from lattigo_tpu_torch.utils import profiling
 
 
 def _hamming(x: int) -> int:
@@ -41,6 +42,7 @@ def _scale_up_exact(value: float, n: float, q: int) -> int:
     return (q - r) % q if x < 0 else r
 
 
+@profiling.spanned("ckks")
 class Evaluator:
     def __init__(self, params, device=None):
         self.ctx = get_context(params, device)

@@ -15,6 +15,7 @@ import torch
 from lattigo_tpu_torch.models.bfv.keygen import PublicKey, SecretKey, SwitchingKey
 from lattigo_tpu_torch.models.ckks.context import get_context
 from lattigo_tpu_torch.ops import galois, samplers
+from lattigo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -29,6 +30,7 @@ class RotationKeys:
     conjugate: SwitchingKey | None = None
 
 
+@profiling.spanned("ckks")
 class KeyGenerator:
     """ckks/keygen.go; every draw comes from one explicit ``torch.Generator``
     on the context's device, seeded with ``seed``."""

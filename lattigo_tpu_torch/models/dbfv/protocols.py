@@ -37,6 +37,7 @@ from lattigo_tpu_torch.models.bfv.keygen import (
 from lattigo_tpu_torch.ops import galois, samplers
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.utils import profiling
 
 
 def _batch(sk: torch.Tensor) -> tuple:
@@ -101,6 +102,7 @@ class _Protocol:
         return ring.add(s1[0], s2[0]), ring.add(s1[1], s2[1])
 
 
+@profiling.spanned("dbfv")
 class CKGProtocol(_Protocol):
     """Collective public key generation (dbfv/publickey_gen.go)."""
 
@@ -116,6 +118,7 @@ class CKGProtocol(_Protocol):
         return PublicKey((combined, crp))
 
 
+@profiling.spanned("dbfv")
 class CKSProtocol(_Protocol):
     """Collective key switch sk_in -> sk_out (dbfv/keyswitching.go)."""
 
@@ -143,6 +146,7 @@ class CKSProtocol(_Protocol):
         return bfv.Ciphertext([self.ctx.ring_q.add(ct.value[0], combined), ct.value[1]])
 
 
+@profiling.spanned("dbfv")
 class PCKSProtocol(_Protocol):
     """Public-key collective key switch sk -> pk (dbfv/public_keyswitching.go)."""
 
@@ -170,6 +174,7 @@ class PCKSProtocol(_Protocol):
         return bfv.Ciphertext([self.ctx.ring_q.add(ct.value[0], combined[0]), combined[1]])
 
 
+@profiling.spanned("dbfv")
 class RKGProtocol(_Protocol):
     """Three-round collective relinearization key (dbfv/relinkey_gen.go).
     ``crp`` is one [beta, L_QP, N] tensor (``CRPGenerator.clock_polys``)."""
@@ -222,6 +227,7 @@ class RKGProtocol(_Protocol):
         return EvaluationKey([SwitchingKey(k0, ring.mform(round2[1]))])
 
 
+@profiling.spanned("dbfv")
 class RKGProtocolNaive(_Protocol):
     """Two-round relinearization key through pseudo-encryptions under the
     collective public key (dbfv/relinkey_gen_naive.go)."""
@@ -265,6 +271,7 @@ class RKGProtocolNaive(_Protocol):
         return EvaluationKey([SwitchingKey(ring.mform(round2[0]), ring.mform(round2[1]))])
 
 
+@profiling.spanned("dbfv")
 class RTGProtocol(_Protocol):
     """Collective rotation-key generation (dbfv/rotkey_gen.go).  ``crp`` is
     one [beta, L_QP, N] tensor."""
@@ -309,6 +316,7 @@ class RTGProtocol(_Protocol):
             rot_keys.row = swk
 
 
+@profiling.spanned("dbfv")
 class RefreshProtocol(_Protocol):
     """Collective bootstrap: masked decryption, recode, re-encryption
     (dbfv/public_refresh.go)."""

@@ -26,6 +26,7 @@ from lattigo_tpu_torch.models.ckks.elements import drop_to_level
 from lattigo_tpu_torch.models.ckks.keygen import EvaluationKey, PublicKey, RotationKeys, SwitchingKey
 from lattigo_tpu_torch.models.dbfv import protocols as dbfv
 from lattigo_tpu_torch.ops import basis_ext, samplers
+from lattigo_tpu_torch.utils import profiling
 
 
 class _Protocol(dbfv._Protocol):
@@ -39,10 +40,12 @@ class _Protocol(dbfv._Protocol):
             x[..., : lvl + 1, :], x[..., self.ctx.ring_q.L :, :])
 
 
+@profiling.spanned("dckks")
 class CKGProtocol(_Protocol, dbfv.CKGProtocol):
     """Collective public key (dckks/publickey_gen.go)."""
 
 
+@profiling.spanned("dckks")
 class CKSProtocol(_Protocol):
     """Collective key switch sk_in -> sk_out at the ciphertext's level
     (dckks/keyswitching.go)."""
@@ -71,6 +74,7 @@ class CKSProtocol(_Protocol):
         return ckks.Ciphertext([self.ctx.ring_q.add(ct.value[0], combined), ct.value[1]], ct.scale)
 
 
+@profiling.spanned("dckks")
 class PCKSProtocol(_Protocol):
     """Public-key collective key switch sk -> pk at the ciphertext's level
     (dckks/public_keyswitching.go)."""
@@ -98,6 +102,7 @@ class PCKSProtocol(_Protocol):
         return ckks.Ciphertext([self.ctx.ring_q.add(ct.value[0], combined[0]), combined[1]], ct.scale)
 
 
+@profiling.spanned("dckks")
 class RKGProtocol(_Protocol, dbfv.RKGProtocol):
     """Three-round collective relinearization key (dckks/relinkey_gen.go).
     ``crp`` is one [beta, L_QP, N] tensor (``CRPGenerator.clock_polys``)."""
@@ -106,6 +111,7 @@ class RKGProtocol(_Protocol, dbfv.RKGProtocol):
         return EvaluationKey(super().gen_relinearization_key(round2, round3).evakey[0])
 
 
+@profiling.spanned("dckks")
 class RKGProtocolNaive(_Protocol, dbfv.RKGProtocolNaive):
     """Two-round relinearization key through pseudo-encryptions under the
     collective public key (dckks/relinkey_gen_naive.go)."""
@@ -114,6 +120,7 @@ class RKGProtocolNaive(_Protocol, dbfv.RKGProtocolNaive):
         return EvaluationKey(super().gen_relinearization_key(round2).evakey[0])
 
 
+@profiling.spanned("dckks")
 class RTGProtocol(_Protocol, dbfv.RTGProtocol):
     """Collective rotation keys and the conjugation key
     (dckks/rotkey_gen.go).  ``crp`` is one [beta, L_QP, N] tensor."""
@@ -144,6 +151,7 @@ class RTGProtocol(_Protocol, dbfv.RTGProtocol):
             rot_keys.conjugate = swk
 
 
+@profiling.spanned("dckks")
 class RefreshProtocol(_Protocol):
     """Collective bootstrap: masked decryption at the ciphertext's level,
     recode to the top level, re-encryption (dckks/public_refresh.go).

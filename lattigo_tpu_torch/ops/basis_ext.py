@@ -25,6 +25,7 @@ import torch
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import modred, modred_kernel as mk, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.utils import profiling
 
 _V_FRAC_BITS = 58  # fixed-point fractional bits of the correction term
 
@@ -129,6 +130,13 @@ def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None, centered: bool = Fals
     assert ls == len(mp.src), (ls, len(mp.src))
     if not _takes_kernel(x):
         return mod_up_plain(x, mp, dst_sel, centered)
+    return _mod_up_kernel(x, mp, dst_sel, centered)
+
+
+@profiling.timed("kernel.mod_up")
+def _mod_up_kernel(x: torch.Tensor, mp: ModUpParams, dst_sel, centered: bool) -> torch.Tensor:
+    """:func:`mod_up`'s launch (its host side is the span ``kernel.mod_up``)."""
+    ls = x.shape[-2]
     if x.device != mp.packed_.device:
         raise ValueError(f"x on {x.device}, basis tables on {mp.packed_.device}")
     sel = mp.sel_vector(dst_sel)

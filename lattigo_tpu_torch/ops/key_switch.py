@@ -35,6 +35,7 @@ import torch
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import modred_kernel as mk
+from lattigo_tpu_torch.utils import profiling
 
 T = torch.Tensor
 PENDING = 7  # products summed before a reduction (csrc/key_switch.cu PENDING)
@@ -128,6 +129,14 @@ def inner_product(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T | Non
     operands = (d, key0, key1, ring.q_) + (() if index is None else (index,))
     if not _takes_kernel(operands):
         return inner_product_plain(d, key0, key1, ring, limbs, beta, index, beta_axis)
+    return _inner_product_kernel(d, key0, key1, ring, limbs, beta, index, beta_axis)
+
+
+@profiling.timed("kernel.key_switch")
+def _inner_product_kernel(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T | None,
+                          beta_axis: int) -> T:
+    """:func:`inner_product`'s launch (its host side is the span
+    ``kernel.key_switch``)."""
     limbs = tuple(limbs)
     n = d.shape[-1]
     if d.shape[beta_axis] != beta or d.shape[-2] != len(limbs):

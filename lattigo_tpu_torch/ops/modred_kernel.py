@@ -32,6 +32,7 @@ import torch
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import modred
+from lattigo_tpu_torch.utils import profiling
 
 T = torch.Tensor
 
@@ -207,6 +208,12 @@ def modarith(name: str, *operands: T) -> T:
     code, slots, plain = OPS[name]
     if not _takes_kernel(operands):
         return plain(*operands)
+    return _modarith_kernel(name, code, slots, operands)
+
+
+@profiling.timed("kernel.modred")
+def _modarith_kernel(name: str, code: int, slots, operands) -> T:
+    """:func:`modarith`'s launch (its host side is the span ``kernel.modred``)."""
     plan = launch_plan(operands)
     out = torch.empty(plan.shape, dtype=torch.int64, device=operands[0].device)
     if out.numel() == 0:

@@ -60,6 +60,7 @@ import torch
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import modred
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.utils import profiling
 
 _N2 = 128  # lane-axis transform length
 _DIG = 8   # 8-bit digits per 64-bit word
@@ -269,9 +270,17 @@ class _DeviceTables:
         self.ready: set[int] = set()
 
     def need(self, limbs) -> "_DeviceTables":
+        missing = set(limbs) - self.ready
+        if missing:
+            from lattigo_tpu_torch.ops.ring import build_tables  # ring imports this module
+
+            build_tables(self._fill, missing)
+        return self
+
+    def _fill(self, limbs) -> None:
         ring, dev = self.ring, self.ring.device
         n1 = ring.n // _N2
-        for l in set(limbs) - self.ready:
+        for l in limbs:
             m_rows, _, m_lanes, _, twt, consts = _limb_tables(
                 ring.moduli[l], ring.n, int(ring.psi_mont[l]), ring.bred[l][0], self.inverse
             )
@@ -282,7 +291,6 @@ class _DeviceTables:
             self.consts[l, 5] = _offset(_DIG * n1)
             self.consts[l, 6] = _offset(_DIG * _N2)
             self.ready.add(l)
-        return self
 
 
 def _tables(ring, limbs, inverse: bool) -> _DeviceTables:
@@ -379,6 +387,12 @@ def ntt_mxu(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = False
     limbs = tuple(int(l) for l in limbs)
     if x.device.type == "cpu":
         return ntt_mxu_plain(ring, x, limbs, inverse)
+    return _ntt_mxu_kernel(ring, x, limbs, inverse)
+
+
+@profiling.timed("kernel.ntt_mxu")
+def _ntt_mxu_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool) -> torch.Tensor:
+    """:func:`ntt_mxu`'s launch (its host side is the span ``kernel.ntt_mxu``)."""
     _check(ring, x, limbs)
     if x.device.type != "cuda":
         raise TypeError(f"ntt_mxu takes tensors on cpu or cuda, got {x.device}")

@@ -44,6 +44,7 @@ import torch
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import modred, tile_ntt
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.utils import profiling
 
 MIN_N = 1 << 10
 MAX_N = 1 << 17
@@ -92,15 +93,13 @@ def _check(ring, x: torch.Tensor, limbs: tuple[int, ...], k: int) -> None:
 def _tables(ring, inverse: bool):
     """Device tables of the whole ring for one direction: plain and Shoup
     twiddles [L, N] and the per-limb constants [L, 4]."""
-    cache, key = ring.kernel_cache, ("passes", inverse)
-    if key not in cache:
-        plain, shoup = ring.shoup_twiddles(inverse)
-        cache[key] = (
-            u.from_u64(plain, ring.device),
-            u.from_u64(shoup, ring.device),
-            u.from_u64(tile_ntt.limb_consts(ring), ring.device),
-        )
-    return cache[key]
+    return ring.kernel_table(("passes", inverse), _build_tables, ring, inverse)
+
+
+def _build_tables(ring, inverse: bool):
+    plain, shoup = ring.shoup_twiddles(inverse)
+    return (u.from_u64(plain, ring.device), u.from_u64(shoup, ring.device),
+            u.from_u64(tile_ntt.limb_consts(ring), ring.device))
 
 
 def _fold(a, two_q):
@@ -213,6 +212,15 @@ def ntt_passes(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = Fa
     plan = launch_plan(n)
     if x.device.type == "cpu":
         return ntt_passes_plain(ring, x, limbs, inverse, plan.k)
+    return _ntt_passes_kernel(ring, x, limbs, inverse, plan)
+
+
+@profiling.timed("kernel.ntt_passes")
+def _ntt_passes_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool,
+                       plan) -> torch.Tensor:
+    """:func:`ntt_passes`'s launch (its host side is the span
+    ``kernel.ntt_passes``)."""
+    n = ring.n
     if x.device.type != "cuda" or x.dtype != torch.int64:
         raise TypeError(f"ntt_passes takes int64 tensors on cpu or cuda, got {x.dtype} on {x.device}")
     if x.device != ring.device:

@@ -18,6 +18,12 @@ Counterpart of ``lattigo_tpu/ops/ring.py`` (and of the reference's
   (``lattigo_tpu/ops/ring.py:197-205``, ``:289-297``).
 * The JAX package's ``Ring.ntt_roll`` is a TPU schedule of the same
   transform that :meth:`Ring.ntt` computes, and has no twin here.
+* Spans and counters (``utils/profiling.py``): every transform is the span
+  ``ring.ntt`` / ``ring.intt`` with its route, and adds its rows
+  (``x.numel() // N``) to the counter ``ntt.rows.<route>``; every build of
+  a ring's constant tables (the constructor, a miss of :meth:`Ring._cached`
+  or :meth:`Ring.kernel_table`) is the span ``ring.tables``, nested builds
+  inside the outermost one.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from lattigo_tpu_torch import tjit
 from lattigo_tpu_torch.ops import modred, modred_kernel as mk, number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.parallel import cross_ntt
+from lattigo_tpu_torch.utils import profiling
 
 # Override of the NTT routing, for timing one kernel on the other's shapes
 # and for running whole scheme ops on the plain schedule:
@@ -49,6 +56,25 @@ _MXU_MIN_BATCH = 2
 OP_CACHE_SIZE = 64
 # the list that record_transforms() fills, while one is open
 _RECORD: list | None = None
+# a table build is open (its span holds the builds nested in it)
+_BUILDING = False
+
+
+def build_tables(build, *args):
+    """``build(*args)`` in the span ``ring.tables``, or inside the open one."""
+    global _BUILDING
+    if _BUILDING:
+        return build(*args)
+    _BUILDING = True
+    try:
+        with profiling.span("ring.tables"):
+            return build(*args)
+    finally:
+        _BUILDING = False
+
+
+def _int32_vector(values, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 @contextlib.contextmanager
@@ -118,6 +144,9 @@ class Ring:
     == 1 mod 2N for the NTT to be enabled."""
 
     def __init__(self, n: int, moduli, compute_ntt_tables: bool = True, device=None):
+        build_tables(lambda: self._init(n, moduli, compute_ntt_tables, device))
+
+    def _init(self, n, moduli, compute_ntt_tables, device):
         if n & (n - 1) != 0:
             raise ValueError("ring degree must be a power of 2")
         self.device = _device.resolve(device)
@@ -218,10 +247,15 @@ class Ring:
     def limb_vector(self, limbs: tuple[int, ...]) -> torch.Tensor:
         """``limbs`` as an int32 vector on the device: the kernels index
         their per-limb tables through it."""
-        key = ("limbs", tuple(limbs))
-        if key not in self.kernel_cache:
-            self.kernel_cache[key] = torch.tensor(limbs, dtype=torch.int32, device=self.device)
-        return self.kernel_cache[key]
+        return self.kernel_table(("limbs", tuple(limbs)), _int32_vector, limbs, self.device)
+
+    def kernel_table(self, key, build, *args):
+        """The entry ``key`` of ``kernel_cache`` (the kernels' device
+        tables), built by ``build(*args)`` when missing."""
+        got = self.kernel_cache.get(key)
+        if got is None:
+            got = self.kernel_cache[key] = build_tables(build, *args)
+        return got
 
     def new_poly(self, lvl: int | None = None, batch=()) -> torch.Tensor:
         L = self.L if lvl is None else lvl + 1
@@ -272,6 +306,11 @@ class Ring:
         route = "cross" if group is not None else self._route(x)
         if _RECORD is not None:
             _RECORD.append((self, tuple(x.shape), limbs, inverse, route))
+        profiling.count("ntt.rows." + route, x.numel() // self.n)
+        return profiling.run_in_span("ring.intt" if inverse else "ring.ntt", route, self._dispatch,
+                                     x, limbs, inverse, route, group)
+
+    def _dispatch(self, x, limbs, inverse, route, group):
         if route == "cross":
             # no kernel: the JAX package's cross-chip path is collectives
             # and tensor butterflies too
@@ -424,7 +463,7 @@ class Ring:
         if key in cache:
             cache.move_to_end(key)
             return tjit.note_table(cache[key])
-        cache[key] = value = build()
+        cache[key] = value = build_tables(build)
         if len(cache) > OP_CACHE_SIZE:
             cache.popitem(last=False)
         return tjit.note_table(value)

@@ -40,6 +40,7 @@ import torch
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import u64 as u
+from lattigo_tpu_torch.utils import profiling
 
 MIN_N = 1 << 8
 MAX_N = 1 << 14  # 128 KB of shared memory; a 2^15 row (256 KB) fits no block
@@ -143,14 +144,13 @@ def limb_consts(ring) -> np.ndarray:
 def _tables(ring, inverse: bool):
     """Device tables of the whole ring for one direction: twiddle pairs
     [L, N, 2] (plain, Shoup) and the per-limb constants [L, 4]."""
-    cache, key = ring.kernel_cache, ("row", inverse)
-    if key not in cache:
-        plain, shoup = ring.shoup_twiddles(inverse)
-        cache[key] = (
-            u.from_u64(np.stack([plain, shoup], axis=-1), ring.device),
-            u.from_u64(limb_consts(ring), ring.device),
-        )
-    return cache[key]
+    return ring.kernel_table(("row", inverse), _build_tables, ring, inverse)
+
+
+def _build_tables(ring, inverse: bool):
+    plain, shoup = ring.shoup_twiddles(inverse)
+    return (u.from_u64(np.stack([plain, shoup], axis=-1), ring.device),
+            u.from_u64(limb_consts(ring), ring.device))
 
 
 def _launch_args(ring, limbs: tuple[int, ...], inverse: bool, rows: int) -> tuple[tuple, tuple]:
@@ -181,6 +181,13 @@ def ntt_tile(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = Fals
     if x.device.type == "cpu":
         limbs = tuple(int(l) for l in limbs)
         return ring._intt_simple(x, limbs) if inverse else ring._ntt_simple(x, limbs)
+    return _ntt_tile_kernel(ring, x, limbs, inverse)
+
+
+@profiling.timed("kernel.ntt_tile")
+def _ntt_tile_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool) -> torch.Tensor:
+    """:func:`ntt_tile`'s launch (its host side is the span ``kernel.ntt_tile``)."""
+    n = ring.n
     if x.device.type != "cuda" or x.dtype != torch.int64:
         raise TypeError(f"ntt_tile takes int64 tensors on cpu or cuda, got {x.dtype} on {x.device}")
     if x.device != ring.device:

@@ -109,17 +109,17 @@ def _butterfly_inv(uu, vv, f, q, two_q, qinv):
 def _tables(ring, limbs, n2: int, D: int, rank: int, inverse: bool):
     """This rank's device tables, cached in ``ring.kernel_cache`` (not in
     the ring's LRU table cache, so they never evict the evaluator's)."""
-    key = ("four_step", limbs, n2, D, rank, inverse)
-    if key not in ring.kernel_cache:
-        n1 = ring.n // n2
-        rows = slice(rank * (n1 // D), (rank + 1) * (n1 // D))
-        a_st, A, b_st, B = _phase_tables(ring, limbs, n1, n2, inverse)
-        dev = ring.device
-        ring.kernel_cache[key] = (
-            a_st, [u.from_u64(a, dev) for a in A],
-            b_st, [u.from_u64(np.ascontiguousarray(b[:, rows]), dev) for b in B],
-        )
-    return ring.kernel_cache[key]
+    return ring.kernel_table(("four_step", limbs, n2, D, rank, inverse), _build_tables, ring,
+                             limbs, n2, D, rank, inverse)
+
+
+def _build_tables(ring, limbs, n2: int, D: int, rank: int, inverse: bool):
+    n1 = ring.n // n2
+    rows = slice(rank * (n1 // D), (rank + 1) * (n1 // D))
+    a_st, A, b_st, B = _phase_tables(ring, limbs, n1, n2, inverse)
+    dev = ring.device
+    return (a_st, [u.from_u64(a, dev) for a in A],
+            b_st, [u.from_u64(np.ascontiguousarray(b[:, rows]), dev) for b in B])
 
 
 def _phase_a(x, n2: int, stages, tw, consts, inverse: bool):

@@ -36,13 +36,26 @@ captured CUDA graph:
   object holding a ``tjit`` of its own method) would otherwise be
   collected in the middle of another capture, and destroying its graph
   there invalidates that capture.
+* Spans (``utils/profiling.py``): a call made outside any program is the
+  span ``tjit.call``, cut into the phases ``tjit.signature`` (flatten,
+  signature, cache lookup), ``tjit.copy_in`` (the static-buffer copies),
+  ``tjit.replay`` (the host time of ``graph.replay()``) and ``tjit.clone``
+  (the output clones), or ``tjit.signature`` and ``tjit.build`` for a new
+  signature (``profiling.phases``).  While tracing, the copy-in is also
+  timed on the device.
+* Counters: a capture's counter adds (NTT rows) are taken out of the
+  counters and kept by the program, with the capture's kernel launches by
+  wrapper (``ring.launch_counts()``, as ``launches.<name>``), its copy-in
+  bytes (``tjit.copy_in_bytes``) and one ``tjit.replays``; each replay
+  counts them once more (``profiling.Replayed``).
 
 On the CPU (the caller asked for it, as the tests do) the signature cache
 is the same, so :meth:`trace_count` counts the same; a call runs ``fn`` on
 copies of its tensor leaves and returns copies of the outputs.  A ``tjit``
 call made while another one's function runs (building, or on the CPU)
 runs inline, as a nested ``tjit`` inlines into the active trace in the JAX
-package.
+package.  The CPU program's phases are the same spans, with ``tjit.fn`` in
+place of the replay, and its copies count in ``tjit.copy_in_bytes``.
 
 Pytrees are lists, tuples, dicts and dataclasses: the port's element and
 key classes (BFV and CKKS ``Ciphertext`` / ``Plaintext``, ``SecretKey``,
@@ -60,6 +73,8 @@ import gc
 import weakref
 
 import torch
+
+from lattigo_tpu_torch.utils import profiling
 
 # id -> table handed out while an entry is built (None: no build open)
 _BUILD: dict | None = None
@@ -99,11 +114,12 @@ def capture(graph, pool=None):
     """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
     collector paused: a collection during the capture may destroy another,
     unreachable CUDA graph, which CUDA refuses while a stream
-    captures, and the capture is then invalidated."""
+    captures, and the capture is then invalidated.  No span records a CUDA
+    event inside it (``profiling.capturing``)."""
     enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with profiling.capturing(), torch.cuda.graph(graph, pool=pool):
             yield
     finally:
         if enabled:
@@ -123,43 +139,44 @@ class TableCache(dict):
 def tree_flatten(tree) -> tuple[list, object]:
     """``(leaves, treedef)``; the treedef is hashable (node types, their
     keys or field names and their children's treedefs; ``None`` for a
-    leaf)."""
+    leaf).  No reference cycle holds the leaves after it returns."""
     leaves = []
-
-    def walk(x):
-        t = type(x)
-        if t is list or t is tuple:
-            return (t, None, tuple(walk(c) for c in x))
-        if t is dict:
-            keys = tuple(sorted(x))
-            return (t, keys, tuple(walk(x[k]) for k in keys))
-        if dataclasses.is_dataclass(t):
-            names = tuple(f.name for f in dataclasses.fields(t))
-            return (t, names, tuple(walk(getattr(x, n)) for n in names))
-        leaves.append(x)
-        return None
-
-    treedef = walk(tree)
+    treedef = _flatten(tree, leaves)
     return leaves, treedef
 
 
+def _flatten(x, leaves: list):
+    t = type(x)
+    if t is list or t is tuple:
+        return (t, None, tuple(_flatten(c, leaves) for c in x))
+    if t is dict:
+        keys = tuple(sorted(x))
+        return (t, keys, tuple(_flatten(x[k], leaves) for k in keys))
+    if dataclasses.is_dataclass(t):
+        names = tuple(f.name for f in dataclasses.fields(t))
+        return (t, names, tuple(_flatten(getattr(x, n), leaves) for n in names))
+    leaves.append(x)
+    return None
+
+
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+    """The tree of ``treedef`` with ``leaves`` in order (no reference cycle
+    holds the leaves after it returns)."""
+    return _unflatten(treedef, iter(leaves))
 
-    def build(d):
-        if d is None:
-            return next(it)
-        t, aux, kids = d
-        children = [build(k) for k in kids]
-        if t is list:
-            return children
-        if t is tuple:
-            return tuple(children)
-        if t is dict:
-            return dict(zip(aux, children))
-        return t(**dict(zip(aux, children)))
 
-    return build(treedef)
+def _unflatten(d, it):
+    if d is None:
+        return next(it)
+    t, aux, kids = d
+    children = [_unflatten(k, it) for k in kids]
+    if t is list:
+        return children
+    if t is tuple:
+        return tuple(children)
+    if t is dict:
+        return dict(zip(aux, children))
+    return t(**dict(zip(aux, children)))
 
 
 def copy_tree(tree):
@@ -206,15 +223,40 @@ class GraphPool:
         return self._handle
 
 
+def _replayed(prog, captured: dict, dyn) -> profiling.Replayed:
+    """``prog``'s counts a call: ``captured``, its copy-in bytes and one
+    replay; they stay in the counters after ``prog`` is freed."""
+    counts = dict(captured)
+    counts["tjit.replays"] = 1
+    counts["tjit.copy_in_bytes"] = sum(t.numel() * t.element_size() for t in dyn)
+    out = profiling.Replayed(counts)
+    weakref.finalize(prog, out.retire)
+    return out
+
+
+def _launch_counts() -> dict[str, int]:
+    from lattigo_tpu_torch.ops import ring  # ring imports this module
+
+    return ring.launch_counts()
+
+
 class _Eager:
     """The program of a CPU signature: ``fn`` on copies of the arguments."""
 
     def __init__(self, fn, rebuild, dyn):
         self.fn, self.rebuild = fn, rebuild
-        self.result, self.tables = _recording(lambda: self(dyn))
+        self.result, self.tables = _recording(
+            lambda: copy_tree(_call(fn, rebuild([t.clone() for t in dyn]))))
+        self.counts = _replayed(self, {}, dyn)
 
-    def __call__(self, dyn):
-        return copy_tree(_call(self.fn, self.rebuild([t.clone() for t in dyn])))
+    def __call__(self, dyn, p: profiling.phases):
+        self.counts.replays += 1
+        p.next("tjit.copy_in")
+        args = self.rebuild([t.clone() for t in dyn])
+        p.next("tjit.fn")
+        out = _call(self.fn, args)
+        p.next("tjit.clone")
+        return copy_tree(out)
 
 
 class _Graph:
@@ -236,18 +278,27 @@ class _Graph:
             del warm
             self.graph = torch.cuda.CUDAGraph()
             _register_generators(self.graph, _BUILD.values())
-            with capture(self.graph, None if pool is None else pool.handle()):
+            launched = _launch_counts()
+            with profiling.counted() as captured, capture(
+                    self.graph, None if pool is None else pool.handle()):
                 out = _call(fn, rebuild(self.static_in))
-            return result, out
+            captured.update((f"launches.{k}", v - launched[k])
+                            for k, v in _launch_counts().items() if v != launched[k])
+            return result, out, captured
 
         with torch.cuda.device(device):
-            (self.result, out), self.tables = _recording(build)
+            (self.result, out, captured), self.tables = _recording(build)
         self.out_leaves, self.out_def = tree_flatten(out)
+        self.counts = _replayed(self, captured, self.static_in)
 
-    def __call__(self, dyn):
+    def __call__(self, dyn, p: profiling.phases):
+        p.next("tjit.copy_in", device=True)
         for buf, t in zip(self.static_in, dyn):
             buf.copy_(t)
+        p.next("tjit.replay")
         self.graph.replay()
+        self.counts.replays += 1
+        p.next("tjit.clone")
         return tree_unflatten(self.out_def, [l.clone() if isinstance(l, torch.Tensor) else l
                                              for l in self.out_leaves])
 
@@ -266,17 +317,22 @@ class _TjitFn:
     def __call__(self, *args):
         if _ACTIVE:
             return self._fn(*args)
-        leaves, treedef = tree_flatten(args)
-        dyn_idx = tuple(i for i, l in enumerate(leaves) if isinstance(l, torch.Tensor))
-        dyn = [leaves[i] for i in dyn_idx]
-        dyn_set = set(dyn_idx)
-        statics = tuple((i, l) for i, l in enumerate(leaves) if i not in dyn_set)
-        key = (treedef, tuple((tuple(t.shape), t.dtype, t.device) for t in dyn), statics)
-        prog = self._cache.get(key)
-        if prog is not None:
-            self.replays += 1
-            return prog(dyn)
+        with profiling.phases("tjit.call", "tjit.signature") as p:
+            leaves, treedef = tree_flatten(args)
+            dyn_idx = tuple(i for i, l in enumerate(leaves) if isinstance(l, torch.Tensor))
+            dyn = [leaves[i] for i in dyn_idx]
+            dyn_set = set(dyn_idx)
+            statics = tuple((i, l) for i, l in enumerate(leaves) if i not in dyn_set)
+            key = (treedef, tuple((tuple(t.shape), t.dtype, t.device) for t in dyn), statics)
+            prog = self._cache.get(key)
+            if prog is not None:
+                self.replays += 1
+                return prog(dyn, p)
+            p.next("tjit.build")
+            return self._build(key, leaves, treedef, dyn_idx, dyn, statics)
 
+    def _build(self, key, leaves, treedef, dyn_idx, dyn, statics):
+        """The program of a new signature; returns the first call's result."""
         n = len(leaves)
 
         def rebuild(tensors):
