@@ -73,7 +73,9 @@ CUDA kernels one PN12QP109 ``forward`` launches outside the NTT wrappers
 
 ``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
 full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, bench, jit, and
-``profile``, which is not in the default run: one replay of
+two that are not in the default run: ``routes``, the grid of every NTT
+kernel's device time by N and rows behind ``Ring._route``'s table, and
+``profile``: one replay of
 ``tjit(forward)`` and of the PIR cloud's graph traced, then the same with
 the modular arithmetic forced to its plain version, and one traced eager
 ``forward`` per configuration, device time by kernel name and the device's
@@ -474,6 +476,23 @@ def record_calls(run) -> list[tuple]:
     torch.cuda.synchronize()
     PENDING_MODARITH.extend(modarith)
     return calls
+
+
+def routed_kernels(calls) -> list[str]:
+    """The NTT kernels ``Ring._route`` gave the transforms ``calls``
+    (``record_calls`` entries, or a rank's ``distinct_transforms``)."""
+    return sorted({ROUTE_KERNEL[c[4]] for c in calls if c[4] in ROUTE_KERNEL})
+
+
+def check_launched(label: str, calls, counts: dict) -> None:
+    """Some transform of ``calls`` took an NTT kernel, and every kernel
+    that one took was launched (``counts``)."""
+    kernels = routed_kernels(calls)
+    if not kernels:
+        fail(f"{label}: no transform took an NTT kernel")
+    for name in kernels:
+        if counts[name + "_fwd"] + counts[name + "_inv"] == 0:
+            fail(f"{label}: the path never launched {name}: {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -1091,6 +1110,107 @@ def phase_kernels() -> None:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
 
 
+# every N with more than one kernel: the long-row kernel's 1024 .. 32768,
+# the row kernel's up to 16384, the four-step kernel's from 4096
+ROUTE_GRID_N = (1024, 2048, 4096, 8192, 16384, 32768)
+# 2 .. 2048 rows, as [rows / 2, 2, N]: the powers of two and 1.25, 1.5 and
+# 1.75 times each (the kernels' waves over 132 SMs fall between them)
+ROUTE_GRID_ROWS = tuple(r for r in sorted({m << e >> 2 for m in (4, 5, 6, 7) for e in range(12)})
+                        if r % 2 == 0 and 2 <= r <= 2048)
+# shapes of paths without a cell: dCKKS at PN14QP438 x 16, the Chebyshev at
+# PN15QP880, the [72, 3, N] grid of the kernels phase
+ROUTE_NAMED = ((3, 16, 6, 16384), (72, 3, 16384), (6, 20, 32768), (17, 1, 32768),
+               (72, 3, 8192), (72, 3, 4096),
+               # each side of the table's crossovers at 4096 and 8192
+               (33, 2, 4096), (67, 1, 4096), (99, 2, 8192), (199, 1, 8192))
+ROUTE_PIR_ROWS = (8, 64)  # the benchmark's PIR cells
+
+
+def kernel_turns(ring, shape, limbs, inverse, seed) -> dict:
+    """Every NTT kernel that holds rows of this N on one input, each held
+    bit-equal to the butterfly schedule, then its device time taken in turns
+    (a, b, c, c, b, a): their mean and spread, the fastest kernel and the
+    one ``Ring._route`` gives."""
+    x = rand_input(ring, shape[:-2], limbs, 1 if inverse else 2, seed)
+    want = ring._intt_simple(x, limbs) if inverse else ring._ntt_simple(x, limbs)
+    names = [k for k in NTT_KERNELS if takes(k, ring.n)]
+    fns = {k: (lambda w=NTT_KERNELS[k]["wrapper"]: w(ring, x, limbs, inverse=inverse))
+           for k in names}
+    for k, fn in fns.items():
+        if not torch.equal(fn(), want):
+            fail(f"routes: {k} disagrees with the butterflies at {shape} limbs {limbs}")
+    del want
+    readings = {k: [] for k in names}
+    for k in names + names[::-1]:
+        t = device_time(fns[k])
+        if not isinstance(t, float):
+            fail(f"routes: {k} at {shape}: {t}")
+        readings[k].append(t)
+    device = {k: statistics.mean(v) for k, v in readings.items()}
+    best = min(device, key=device.get)
+    routed = ROUTE_KERNEL[ring._route(x)]
+    torch.cuda.empty_cache()
+    return dict(shape=list(shape), rows=x.numel() // ring.n, inverse=inverse, device_ms=device,
+                spread={k: abs(v[0] - v[1]) / device[k] for k, v in readings.items()},
+                best=best, routed=routed, routed_over_best=device[routed] / device[best])
+
+
+def phase_routes() -> None:
+    """The grid behind ``Ring._route``'s table (PERF.md §6): the device time
+    of every NTT kernel that holds rows of N on ``[rows / 2, 2, N]`` for
+    N in ROUTE_GRID_N and rows in ROUTE_GRID_ROWS, both directions; then on
+    the named shapes of paths without a cell, and on every distinct
+    transform of the PIR cloud (PN13QP218, 3 parties) at the benchmark's
+    row counts.  One ``routes`` line an N, then ``routes_paths``;
+    ``routed_over_best`` is the table's choice over the fastest kernel."""
+    seed = 7000
+    limbs = max(shape[-2] for shape in ROUTE_NAMED)
+    rings = {n: Ring(n, nt.generate_ntt_primes(60, n.bit_length() - 1, limbs), device=DEV)
+             for n in ROUTE_GRID_N}
+    spreads = []
+    for n, ring in rings.items():
+        points = []
+        for rows in ROUTE_GRID_ROWS:
+            for inverse in (False, True):
+                seed += 1
+                points.append(kernel_turns(ring, (rows // 2, 2, n), (0, 1), inverse, seed))
+        spreads += [s for p in points for s in p["spread"].values()]
+        emit("routes", n=n, points=points,
+             worst_routed_over_best=max(p["routed_over_best"] for p in points))
+    named = []
+    for shape in ROUTE_NAMED:
+        for inverse in (False, True):
+            seed += 1
+            named.append(kernel_turns(rings[shape[-1]], shape, tuple(range(shape[-2])), inverse,
+                                      seed))
+    pir_points = {}
+    for n_rows in ROUTE_PIR_ROWS:
+        pir = entry_dbfv_pir(device=DEV, n_rows=n_rows)
+        pk, rlk, rot_keys = pir.ckg(), pir.rkg(), pir.rtg()
+        args = (*pir.encrypt(pk), rlk, rot_keys)
+        with ring_mod.record_transforms() as calls:
+            pir.cloud(*args)
+        torch.cuda.synchronize()
+        distinct = {}
+        for ring, shape, limbs, inverse, route in calls:
+            distinct.setdefault((tuple(ring.moduli), shape, limbs, inverse), [ring, 0])[1] += 1
+        mine = []
+        for (_, shape, limbs, inverse), (ring, count) in sorted(distinct.items(),
+                                                               key=lambda kv: kv[0][1:]):
+            seed += 1
+            mine.append(dict(kernel_turns(ring, shape, limbs, inverse, seed), calls=count))
+        pir_points[n_rows] = dict(
+            transforms=len(calls), points=mine,
+            routed_ms=sum(p["device_ms"][p["routed"]] * p["calls"] for p in mine),
+            best_ms=sum(p["device_ms"][p["best"]] * p["calls"] for p in mine))
+        del pir, pk, rlk, rot_keys, args, calls
+        torch.cuda.empty_cache()
+    spreads.sort()
+    emit("routes_paths", named=named, pir=pir_points,
+         grid_spread=dict(median=statistics.median(spreads),
+                          p90=spreads[int(0.9 * (len(spreads) - 1))], max=spreads[-1]))
+
+
 def phase_small() -> dict:
     """The port tests' log N = 8 sets on the card, every object made with
     ``device="cuda"`` (no index): BFV encode, encrypt, ``mul``,
@@ -1414,9 +1534,7 @@ def phase_dbfv() -> dict:
 
     pir_counts = _sum_counts({k: v for k, v in counts.items() if k not in checks})
     total = _sum_counts(counts)
-    for name in ("ntt_tile", "ntt_mxu"):
-        if total[name + "_fwd"] + total[name + "_inv"] == 0:
-            fail(f"dbfv: the path never launched {name}")
+    check_launched("dbfv", calls, total)
     return dict(label=label, n=params.n, parties=pir.n_parties, rows=pir.n_rows,
                 crp_walk=native.walk_route(), setup_s=setup_s, first_cloud_s=first_cloud_s,
                 ms=cloud_ms, device_ms=cloud_device_ms, cks_ms=cks_ms, cloud_ops=cloud_ops,
@@ -1477,8 +1595,7 @@ def phase_rotate(batch: int) -> dict:
                          device_ms=device_time(fn, count=HEAVY_GRAPH_CALLS))
         torch.cuda.empty_cache()
     counts = _sum_counts({k: v["counts"] for k, v in out.items()})
-    if counts["ntt_mxu_fwd"] + counts["ntt_mxu_inv"] == 0:
-        fail("rotate: the rotations never launched the four-step kernel")
+    check_launched("rotate", calls, _sum_counts({"keygen": keygen_counts, "ops": counts}))
     return dict(label=label, n=n, batch=[batch], keygen_s=keygen_s, keygen_counts=keygen_counts,
                 rotation_keys=dict(left=sorted(rk.left), right=sorted(rk.right), row=rk.row is not None),
                 ops=out, counts=counts, shapes=measure_calls(calls, label + " rotate"))
@@ -1690,9 +1807,7 @@ def phase_dckks() -> dict:
 
     codec_bytes = stage("codecs", codecs)
     path_counts = _sum_counts({k: counts[k] for k in path_stages})
-    for name in ("ntt_tile", "ntt_mxu"):
-        if path_counts[name + "_fwd"] + path_counts[name + "_inv"] == 0:
-            fail(f"dckks: the path never launched {name}")
+    check_launched("dckks", calls, _sum_counts(counts))
     return dict(label=label, n=params.n, slots=slots, parties=net.n_parties,
                 crp_walk=native.walk_route(), setup_s=seconds, first_s=first_s,
                 refresh_host_s=seconds["refresh_masks"], refresh_device_s=seconds["refresh_shares"],
@@ -1726,7 +1841,8 @@ def sharded_pir(world, inputs: dict, label: str) -> tuple[dict, list, list]:
     """``DbfvPir.sharded_cloud`` on ``world``, PIR_CALLS calls a rank: every
     rank's result bit-equal to the unsharded compiled cloud on the same
     inputs, the result switched to the requester's key (CKS) decrypting to
-    the wanted row, ntt_tile and ntt_mxu launched on every rank.  Returns
+    the wanted row, every kernel its transforms took launched on every
+    rank.  Returns
     its record (by rank: the replayed ``ms`` of the partial program, the
     fold across the ranks and the relinearization, medians of the calls
     after the first; the first call's seconds, capture included; peak
@@ -1747,9 +1863,7 @@ def sharded_pir(world, inputs: dict, label: str) -> tuple[dict, list, list]:
     for rank, out in enumerate(r["ranks"]):
         s = out["seconds"]
         c = _sum_counts(out["counts"])
-        for name in ("ntt_tile", "ntt_mxu"):
-            if c[name + "_fwd"] + c[name + "_inv"] == 0:
-                fail(f"{label}: rank {rank} never launched {name}: {out['counts']}")
+        check_launched(f"{label}: rank {rank}", out["transforms"], c)
         ranks.append(dict(
             rows=out["rows"], partial_ms=ms(s["partial"][1:]), fold_ms=ms(s["fold"][1:]),
             relinearize_ms=ms(s["relinearize"][1:]),
@@ -1790,9 +1904,8 @@ def phase_parallel() -> dict:
             r = dryrun_multichip(n, device=DEV, backend=backend, world=world)
             dryrun_s = time.time() - t0
             per_rank = [_sum_counts(c) for c in r["counts"]]
-            for rank, c in enumerate(per_rank):
-                if not (c["ntt_tile_fwd"] + c["ntt_tile_inv"]) or not (c["ntt_mxu_fwd"] + c["ntt_mxu_inv"]):
-                    fail(f"parallel: rank {rank} of the {backend} world launched {c}")
+            for rank, (c, ts) in enumerate(zip(per_rank, r["transforms"])):
+                check_launched(f"parallel: rank {rank} of the {backend} world", ts, c)
             counts += per_rank
             for ts in r["transforms"]:
                 transforms.update(ts)
@@ -1887,9 +2000,7 @@ def phase_examples() -> dict:
     and_ops = profile_ops(psi, lambda: psi.and_chain(cts, rlk))
     counts = _sum_counts({"ride": ride["counts"], "sigmoid": sig["counts"], "pir": pir["counts"],
                           **stage_counts})
-    for name in ("ntt_tile", "ntt_mxu"):
-        if counts[name + "_fwd"] + counts[name + "_inv"] == 0:
-            fail(f"examples: the examples never launched {name}")
+    check_launched("examples", calls, counts)
     return dict(label=label, ride=ride, sigmoid=sig, pir=pir,
                 psi=dict(n=psi.params.n, parties=3, elements=int(want.sum()), setup_s=seconds,
                          stage_counts=stage_counts, and_chain_ops=and_ops),
@@ -1999,12 +2110,10 @@ def phase_jit():
     gave it (timed: the largest of each kernel and direction).  Yields one
     result a program, as it is done."""
 
-    def finish(fields, calls, kernels, **more) -> dict:
-        for name in kernels:
-            if fields["counts"][name + "_fwd"] + fields["counts"][name + "_inv"] == 0:
-                fail(f"jit {fields['label']}: no graph holds a launch of {name}")
+    def finish(fields, calls, **more) -> dict:
+        check_launched(f"jit {fields['label']}", calls, fields["counts"])
         torch.cuda.synchronize()
-        return dict(fields, kernels=kernels, shapes=measure_calls(
+        return dict(fields, kernels=routed_kernels(calls), shapes=measure_calls(
             calls, fields["label"], largest_only=True), **more)
 
     forward, (ct0, ct1, swk) = entry(device=DEV)
@@ -2017,7 +2126,7 @@ def phase_jit():
     got = enc.decode_uint(bfv.Decryptor(params, forward.secret_key, device=DEV).decrypt(res))
     if not (got == m * m[::-1] % np.uint64(params.t)).all():
         fail("jit: the replayed forward does not decrypt to m * m[::-1] mod t")
-    yield finish(r, calls, ("ntt_tile", "ntt_mxu"), op_traces=compiled.trace_count(),
+    yield finish(r, calls, op_traces=compiled.trace_count(),
                  replays=compiled.replays)
 
     pir = entry_dbfv_pir(device=DEV)
@@ -2030,7 +2139,7 @@ def phase_jit():
     sk_req = pir.requester_key()
     if not (pir.decrypt(pir.cks(res, sk_req), sk_req) == pir.rows[pir.wanted]).all():
         fail(f"jit: the replayed PIR cloud does not retrieve row {pir.wanted}")
-    yield finish(r, calls, ("ntt_tile", "ntt_mxu"), op_traces=pir.compiled_cloud.trace_count(),
+    yield finish(r, calls, op_traces=pir.compiled_cloud.trace_count(),
                  replays=pir.compiled_cloud.replays)
     del pir, pk, rlk, rot_keys, query, rows, masks, rolled
 
@@ -2041,8 +2150,7 @@ def phase_jit():
                             (cts, rlk), (cts[::-1], rlk))
     if not (psi.decrypt(*psi.pcks(res)) == psi.want()).all():
         fail("jit: the replayed AND chain does not decrypt to the intersection")
-    yield finish(r, calls, ("ntt_tile", "ntt_mxu"),
-                 op_traces=psi.compiled_and_chain.trace_count(),
+    yield finish(r, calls, op_traces=psi.compiled_and_chain.trace_count(),
                  replays=psi.compiled_and_chain.replays)
     del psi, pk, rlk, cts
 
@@ -2094,7 +2202,7 @@ def phase_jit():
         fail("jit: after the LRU flood the replayed Chebyshev differs from eager")
     del fresh, want
     yield finish(
-        r, calls, ("ntt_mxu", "ntt_passes"), op_traces=ch.op_traces(),
+        r, calls, op_traces=ch.op_traces(),
         programs={k: f.trace_count() for k, f in jops.items()},
         replays=sum(f.replays for f in jops.values()),
         replays_an_evaluation={k: (f.replays - replays0[k]) // (len(cts) - 1)
@@ -2105,11 +2213,11 @@ def phase_jit():
                    evicted_held_tables=evicted))
 
 
-def _find_call(calls, moduli, shape, inverse, route):
+def _find_call(calls, moduli, shape, inverse):
     for c in calls:
-        if (tuple(c[0].moduli), c[1], c[3], c[4]) == (tuple(moduli), tuple(shape), inverse, route):
+        if (tuple(c[0].moduli), c[1], c[3]) == (tuple(moduli), tuple(shape), inverse):
             return c
-    fail(f"bench: no {route} transform of {list(shape)} (inverse {inverse}) was made")
+    fail(f"bench: no transform of {list(shape)} (inverse {inverse}) was made")
 
 
 def phase_bench() -> dict:
@@ -2122,9 +2230,11 @@ def phase_bench() -> dict:
     party by party, its PCKS and Refresh exact).  Every kernel held against
     its plain version at every shape the run gave it (the largest of each
     kernel and direction timed), and the new shapes timed for the kernels
-    line: the headline ``[1024, 2, 8192]`` (four-step, both directions), the
-    single-ciphertext ``[2, 8192]`` (row) and the largest PN16QP1761
-    single-ciphertext transforms (long-row)."""
+    line: the headline ``[1024, 2, 8192]`` (both directions), the
+    single-ciphertext ``[2, 8192]`` and the largest PN16QP1761
+    single-ciphertext transforms, each on the kernel ``Ring._route`` gives
+    it; and, apart (``forced_fourstep``), the headline forced onto the
+    four-step kernel, which no band of the routing table holds."""
     label = "bench"
     recs = []
     torch.cuda.synchronize()
@@ -2145,18 +2255,16 @@ def phase_bench() -> dict:
     party = by["dbfv_8party_ckg_pcks_refresh_pn12qp109"]
     if party["party_noise_distinct_pairs"] != 28 or not party["pcks_and_refresh_exact"]:
         fail(f"bench: the 8-party shares {party}")
-    for name in NTT_KERNELS:
-        if counts[name + "_fwd"] == 0:
-            fail(f"bench: the bench never launched {name}")
+    check_launched("bench", calls, counts)
     for name in MODARITH_KERNELS:
         if counts[name] == 0:
             fail(f"bench: the bench never launched {name}")
     shapes = measure_calls(calls, label, largest_only=True)
     pn16 = ckks.default_params(ckks.PN16QP1761)
     passes = [c for c in calls if c[4] == "passes" and c[0].n == pn16.n]
-    named = [_find_call(calls, port_bench.GOLDEN_60, (1024, 2, 8192), False, "mxu"),
-             _find_call(calls, port_bench.GOLDEN_60, (1024, 2, 8192), True, "mxu"),
-             _find_call(calls, port_bench.GOLDEN_60, (2, 8192), False, "tile")]
+    named = [_find_call(calls, port_bench.GOLDEN_60, (1024, 2, 8192), False),
+             _find_call(calls, port_bench.GOLDEN_60, (1024, 2, 8192), True),
+             _find_call(calls, port_bench.GOLDEN_60, (2, 8192), False)]
     for inverse in (False, True):
         mine = [c for c in passes if c[3] == inverse]
         if not mine:
@@ -2177,7 +2285,37 @@ def phase_bench() -> dict:
         rows.append(dict(MEASURED[key], calls=sum(1 for c in calls if c[0] is ring
                                                    and c[1:] == (shape, limbs, inverse, route))))
     return dict(label=label, run_s=run_s, skipped=list(BENCH_SKIP), records=recs,
-                counts=counts, shapes=shapes, named_shapes=rows)
+                counts=counts, shapes=shapes, named_shapes=rows,
+                forced_fourstep=forced_fourstep(*named[0][:3]))
+
+
+def forced_fourstep(ring, shape, limbs) -> dict:
+    """The headline round trip with ``FORCE_KERNEL = "mxu"``: equal to the
+    routed one and to its input, the four-step kernel's launches counted,
+    and its time on the shape in both directions, beside the other kernels'."""
+    x = rand_input(ring, shape[:-2], limbs, 1, seed=5000)
+    reset_counts()
+    ring_mod.FORCE_KERNEL = "mxu"
+    try:
+        y = ring.ntt_limbs(x, limbs)
+        back = ring.intt_limbs(y, limbs)
+    finally:
+        ring_mod.FORCE_KERNEL = None
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if not (torch.equal(back, x) and torch.equal(y, ring.ntt_limbs(x, limbs))):
+        fail(f"bench: the four-step round trip of {list(shape)} differs from the routed one")
+    del x, y, back
+    rows = []
+    for inverse in (False, True):
+        r = measure_shape("ntt_mxu", ring, shape, limbs, inverse, seed=5001 + inverse)
+        if r["max_abs_err"] != 0:
+            fail(f"bench: ntt_mxu disagrees with its plain version at {shape}")
+        r.update(kernel="ntt_mxu", calls=1, measured_by="bench, FORCE_KERNEL = mxu",
+                 other_kernels=cross_time("ntt_mxu", ring, shape, limbs, inverse, seed=5003))
+        rows.append(r)
+        torch.cuda.empty_cache()
+    return dict(label="bench, FORCE_KERNEL = mxu", counts=counts, shapes=rows)
 
 
 PROFILER_PAD_S = 0.02  # idle time at both ends of a profiler window
@@ -2354,6 +2492,8 @@ def main() -> None:
         emit("baseline", source=args.baseline_row)
     if "kernels" in phases:
         phase_kernels()
+    if "routes" in phases:
+        phase_routes()
     if "small" in phases:
         emit("small", **phase_small())
     summary = []
@@ -2363,26 +2503,28 @@ def main() -> None:
         # the key switch's fold is one key_switch launch in place of 6
         # modred launches (a product a block and key half, 2 x 2, and a
         # reduction a key half)
-        if res["counts"] != {"ntt_tile_fwd": 1, "ntt_tile_inv": 2, "ntt_mxu_fwd": 6,
-                             "ntt_mxu_inv": 2, "ntt_passes_fwd": 0, "ntt_passes_inv": 0,
+        # every transform (N = 4096, fewer than 67 rows) on the long-row
+        # kernel (Ring._route)
+        if res["counts"] != {"ntt_tile_fwd": 0, "ntt_tile_inv": 0, "ntt_mxu_fwd": 0,
+                             "ntt_mxu_inv": 0, "ntt_passes_fwd": 7, "ntt_passes_inv": 4,
                              "modred": 22, "mod_up": 8, "key_switch": 1}:
-            fail(f"launch counts of one forward are {res['counts']}, expected 8 four-step, "
-                 "3 row, 22 modular-pass, 8 basis-extension and 1 key-switch launches")
+            fail(f"launch counts of one forward are {res['counts']}, expected 11 long-row, "
+                 "22 modular-pass, 8 basis-extension and 1 key-switch launches")
         if res["cuda_kernels"]["outside_ntt"] > MAX_OTHER_KERNELS:
             fail(f"one forward launched {res['cuda_kernels']['outside_ntt']} CUDA kernels "
                  f"outside the NTT wrappers, more than {MAX_OTHER_KERNELS}")
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", *MODARITH_KERNELS))
+        summary += kernel_rows(res, (*NTT_KERNELS, *MODARITH_KERNELS))
     if "full_width" in phases:
         res = drive(bfv.PN14QP438, (args.batch,), "PN14QP438")
         emit("full_width", **res)
         if sum(res["counts"].values()) == 0:
             fail("the full-width forward launched no kernel")
         if "main_path" not in phases:
-            summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+            summary += kernel_rows(res, tuple(NTT_KERNELS))
     if "ckks" in phases:
         res = phase_ckks()
         emit("ckks", **res)
-        summary += kernel_rows(res, ("ntt_passes", *MODARITH_KERNELS))
+        summary += kernel_rows(res, (*NTT_KERNELS, *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "bfv15" in phases:
         res = drive(bfv.PN15QP880, (), "PN15QP880")
@@ -2394,34 +2536,36 @@ def main() -> None:
     if "dbfv" in phases:
         res = phase_dbfv()
         emit("dbfv", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", *MODARITH_KERNELS))
+        summary += kernel_rows(res, (*NTT_KERNELS, *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "rotate" in phases:
         res = phase_rotate(args.batch)
         emit("rotate", **res)
-        summary += kernel_rows(res, ("ntt_mxu",))
+        summary += kernel_rows(res, tuple(NTT_KERNELS))
         torch.cuda.empty_cache()
     if "dckks" in phases:
         res = phase_dckks()
         emit("dckks", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", *MODARITH_KERNELS))
+        summary += kernel_rows(res, (*NTT_KERNELS, *MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "parallel" in phases:
         res = phase_parallel()
         pir = res.pop("pir")
         emit("parallel", **res)
         emit("parallel_pir", **pir)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu", "ntt_passes"))
+        summary += kernel_rows(res, tuple(NTT_KERNELS))
         torch.cuda.empty_cache()
     if "examples" in phases:
         res = phase_examples()
         emit("examples", **res)
-        summary += kernel_rows(res, ("ntt_tile", "ntt_mxu"))
+        summary += kernel_rows(res, tuple(NTT_KERNELS))
         torch.cuda.empty_cache()
     if "bench" in phases:
         res = phase_bench()
-        emit("bench", **{k: v for k, v in res.items() if k != "named_shapes"})
+        emit("bench", **{k: v for k, v in res.items()
+                         if k not in ("named_shapes", "forced_fourstep")})
         summary += kernel_rows(dict(res, shapes=res["named_shapes"]), tuple(NTT_KERNELS))
+        summary += kernel_rows(res["forced_fourstep"], ("ntt_mxu",))
         summary += kernel_rows(res, tuple(MODARITH_KERNELS))
         torch.cuda.empty_cache()
     if "jit" in phases:

@@ -46,10 +46,23 @@ from lattigo_tpu_torch.utils import profiling
 # None (route by shape) | "tile" | "mxu" | "passes" | "plain".
 FORCE_KERNEL = None
 
-# Stacked calls of at least this many polys go to the four-step kernel, the
-# rest to the row kernel.  This keeps the JAX package's routing; it is policy,
-# not a measurement on the GPU.
-_MXU_MIN_BATCH = 2
+# The NTT routing, from the H100 grid of PERF.md §6 ("Routing grid": each
+# kernel's device time on [rows / 2, 2, N] for 2 .. 2048 rows, both
+# directions, and on the PIR cloud's transforms).  For each N, bands of rows
+# (x.numel() // N) as (least rows, route): a transform takes the last band
+# it reaches.  The long-row kernel (two blocks a row) takes few rows 1.2-1.6 x
+# faster than the row kernel; its waves hold 66 rows on the 132 SMs, and the
+# crossovers sit at their edges.  At N = 16384 and 32768 it is within 3 % of
+# the fastest kernel at every row count.  The four-step kernel ("mxu") is the
+# slowest at every point of the grid (1.4-4.9 x) and has no band.  N from 256
+# to 2048 takes the row kernel (within 6 % of the fastest on the grid at 1024
+# and 2048), N from 65536 the long-row kernel, the only one that holds it.
+_ROUTES = {
+    4096: ((0, "passes"), (67, "tile")),
+    8192: ((0, "passes"), (199, "tile")),
+    16384: ((0, "passes"),),
+    32768: ((0, "passes"),),
+}
 # entries of a Ring's table cache (scalar columns, rotation twists, index
 # tables); the least recently used one goes first, so that user-chosen
 # scalars cannot grow it without bound
@@ -261,13 +274,6 @@ class Ring:
         L = self.L if lvl is None else lvl + 1
         return torch.zeros((*batch, L, self.n), dtype=torch.int64, device=self.device)
 
-    @staticmethod
-    def _batch_of(x: torch.Tensor) -> int:
-        out = 1
-        for b in x.shape[:-2]:
-            out *= int(b)
-        return out
-
     # -- NTT ---------------------------------------------------------------
 
     def _route(self, x: torch.Tensor) -> str:
@@ -276,29 +282,22 @@ class Ring:
         Below N = 256 (``tile_ntt.MIN_N``) every transform takes the plain
         schedule (``"plain"``), on any device, as the JAX package sends every
         N < 4096 to its ``_ntt_simple`` (``lattigo_tpu/ops/ring.py:181``,
-        ``:237``).  From N = 256 to 16384 the routing is the JAX package's
-        (``lattigo_tpu/ops/ring.py:207-237``): stacked calls (batch >= 2) at
-        a supported N go to the int8 four-step kernel, everything else,
-        N < 4096 included, to the row kernel.  Every transform the row kernel
-        cannot hold (N > 16384) and the four-step kernel does not take goes
-        to the long-row (cluster) kernel: N = 65536 at any batch, N = 32768
-        at batch 1.  This departs from the JAX package, which sends N = 65536 at batch
-        < 64 to its row kernel because a TPU holds a 512 KB row in VMEM; no
-        H100 block holds one (227 KB of shared memory at most).
-        ``FORCE_KERNEL`` overrides all of this.  Every wrapper takes its
-        plain version for a CPU tensor."""
-        from lattigo_tpu_torch.ops import mxu_ntt, tile_ntt
+        ``:237``).  At the N of ``_ROUTES`` the rows of the call pick the
+        band; every other N up to 16384 (``tile_ntt.MAX_N``, the longest row
+        one block holds) goes to the row kernel, and above it to the
+        long-row (cluster) kernel.  ``FORCE_KERNEL`` overrides all of this.
+        Every wrapper takes its plain version for a CPU tensor."""
+        from lattigo_tpu_torch.ops import tile_ntt
 
         if FORCE_KERNEL is not None:
             return FORCE_KERNEL
         if self.n < tile_ntt.MIN_N:
             return "plain"
-        if (self.n >= 4096 and mxu_ntt.supported(self.n)
-                and self._batch_of(x) >= _MXU_MIN_BATCH):
-            return "mxu"
-        if self.n > tile_ntt.MAX_N:
-            return "passes"
-        return "tile"
+        bands = _ROUTES.get(self.n)
+        if bands is None:
+            return "tile" if self.n <= tile_ntt.MAX_N else "passes"
+        rows = x.numel() // self.n
+        return next(route for least, route in reversed(bands) if rows >= least)
 
     def _transform(self, x: torch.Tensor, limbs, inverse: bool) -> torch.Tensor:
         limbs = tuple(int(l) for l in limbs)

@@ -18,6 +18,7 @@ from lattigo_tpu.ops import tile_ntt as jtile
 from lattigo_tpu.ops import u64 as ju
 from lattigo_tpu.ops.ring import Ring as JRing
 from lattigo_tpu_torch.ops import mxu_ntt as tmxu
+from lattigo_tpu_torch.ops import pallas_ntt as tpallas
 from lattigo_tpu_torch.ops import ring as tring_mod
 from lattigo_tpu_torch.ops import tile_ntt as ttile
 from lattigo_tpu_torch.ops import u64 as tu
@@ -174,23 +175,30 @@ def test_supported_sizes():
 
 
 def test_dispatch_routes(rings, monkeypatch):
-    """Stacked calls go to the four-step wrapper, single polys to the row
-    wrapper, and FORCE_KERNEL overrides both; every route gives the same bits."""
+    """At N = 4096 few rows go to the long-row wrapper and 67 or more to the
+    row wrapper (``ring._ROUTES``), and FORCE_KERNEL overrides both, the
+    four-step wrapper included; every route, chosen or forced, gives the
+    same bits."""
     _, tr = rings
     seen = []
-    real_mxu, real_tile = tmxu.ntt_mxu, ttile.ntt_tile
-    monkeypatch.setattr(tmxu, "ntt_mxu", lambda *a, **k: seen.append("mxu") or real_mxu(*a, **k))
-    monkeypatch.setattr(ttile, "ntt_tile", lambda *a, **k: seen.append("tile") or real_tile(*a, **k))
-    x1, x2 = T(rand((0, 1, 2), (), seed=1)), T(rand((0, 1, 2), (2,), seed=2))
-    y1, y2 = tr.ntt(x1), tr.ntt(x2)
-    assert seen == ["tile", "mxu"]
-    tr.intt(y1), tr.intt(y2)
-    assert seen == ["tile", "mxu", "tile", "mxu"]
-    for force, want in (("tile", "tile"), ("mxu", "mxu"), ("plain", None)):
+    for mod, name in ((tmxu, "ntt_mxu"), (ttile, "ntt_tile"), (tpallas, "ntt_passes")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _real=real, _name=name[4:], **k:
+                            seen.append(_name) or _real(*a, **k))
+    x1, x2 = T(rand((0, 1, 2), (), seed=1)), T(rand((0, 1, 2), (2,), seed=2))  # 3 and 6 rows
+    x80 = T(rand((1, 2), (40,), seed=4))  # 80 rows
+    y1, y2, y80 = tr.ntt(x1), tr.ntt(x2), tr.ntt_limbs(x80, (1, 2))
+    assert seen == ["passes", "passes", "tile"]
+    tr.intt(y1), tr.intt(y2), tr.intt_limbs(y80, (1, 2))
+    assert seen == ["passes", "passes", "tile"] * 2
+    assert torch.equal(y80, tr._ntt_simple(x80, (1, 2)))
+    for force, want in (("tile", "tile"), ("mxu", "mxu"), ("passes", "passes"), ("plain", None)):
         monkeypatch.setattr(tring_mod, "FORCE_KERNEL", force)
         del seen[:]
         assert torch.equal(tr.ntt(x2), y2) and torch.equal(tr.intt(y2), x2)
         assert seen == ([want, want] if want else [])
+    monkeypatch.setattr(tring_mod, "FORCE_KERNEL", "passes")
+    assert torch.equal(tr.intt_limbs(y80, (1, 2)), x80)
     small = TRing(256, nt.generate_ntt_primes(46, 8, 2), device="cpu")
     monkeypatch.setattr(tring_mod, "FORCE_KERNEL", None)
     del seen[:]

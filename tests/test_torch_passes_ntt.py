@@ -140,13 +140,29 @@ def test_plain_default_split_matches_butterflies_long_rows(log_n):
 @pytest.mark.parametrize("n,batch,route", [
     (32768, (), "passes"), (32768, (1,), "passes"), (65536, (), "passes"),
     (65536, (72,), "passes"), (65536, (8, 9), "passes"), (131072, (3,), "passes"),
-    (32768, (2,), "mxu"), (32768, (8, 9), "mxu"),
-    (16384, (), "tile"), (16384, (16,), "mxu"), (4096, (), "tile"), (4096, (2,), "mxu"),
+    (32768, (2,), "passes"), (32768, (8, 9), "passes"),
+    (16384, (), "passes"), (16384, (16,), "passes"), (4096, (), "passes"), (4096, (2,), "passes"),
     (2048, (5,), "tile"),
+    # both sides of each crossover of the table, and its ends
+    (4096, (66,), "passes"), (4096, (67,), "tile"), (4096, (2048,), "tile"),
+    (8192, (198,), "passes"), (8192, (199,), "tile"), (8192, (2048,), "tile"),
+    (16384, (2048,), "passes"), (32768, (2048,), "passes"),
+    (2048, (), "tile"), (2048, (2048,), "tile"), (1024, (3,), "tile"),
+    # the PIR cloud's transforms at PN13QP218 (N = 8192, 3 parties), 8 rows:
+    # [1|2|3, 8, 3], [3, 8, 1], [8, 3] and [8, 4] (24 to 72 rows) ...
+    (8192, (3, 8, 3), "passes"), (8192, (2, 8, 3), "passes"), (8192, (1, 8, 3), "passes"),
+    (8192, (3, 8, 1), "passes"), (8192, (8, 3), "passes"), (8192, (8, 4), "passes"),
+    # ... and 64 rows: 192 rows on the long-row kernel, 256 and more on the row kernel
+    (8192, (3, 64, 3), "tile"), (8192, (2, 64, 3), "tile"), (8192, (1, 64, 3), "passes"),
+    (8192, (3, 64, 1), "passes"), (8192, (64, 3), "passes"), (8192, (64, 4), "tile"),
+    (8192, (3,), "passes"), (8192, (4,), "passes"),
 ])
 def test_routes(n, batch, route):
-    """The row kernel holds N <= 16384; above it the four-step kernel takes
-    the stacked calls it supports and the long-row kernel everything else."""
+    """The routing table (``ring._ROUTES``, from the H100 grid): at N = 4096
+    and 8192 the long-row kernel below a row count and the row kernel from
+    it; at 16384 and 32768 the long-row kernel; the four-step kernel never.
+    N <= 2048 takes the row kernel, N >= 65536 the long-row kernel.  Rows
+    are ``x.numel() // N``: here the batch times one limb."""
     ring = TRing(n, nt.generate_ntt_primes(50, n.bit_length() - 1, 1), compute_ntt_tables=False,
                  device="cpu")
     assert ring._route(torch.empty((*batch, 1, n), dtype=torch.int64, device="meta")) == route
