@@ -55,10 +55,11 @@ _contexts: dict = {}
 
 def get_context(params, device=None) -> CKKSContext:
     """One shared context per (parameter set, device): contexts hold large
-    device tables."""
+    device tables.  The key holds every field the context's users read from
+    it: the moduli, the default scale and the noise's sigma."""
     params.gen_from_log_moduli()
     dev = _device.resolve(device)
-    k = (params.log_n, params.log_slots, params.qi, params.pi, str(dev))
+    k = (params.log_n, params.log_slots, params.scale, params.sigma, params.qi, params.pi, str(dev))
     if k not in _contexts:
         _contexts[k] = CKKSContext(params, dev)
     return _contexts[k]

@@ -5,7 +5,14 @@ interpolation (ckks/chebyshev_interpolation.go, chebyshev_evaluation.go).
 The port's copy of ``lattigo_tpu/models/ckks/polynomial_evaluation.py``:
 the interpolation is pure Python floats, the evaluation composes the
 evaluator's methods, so both packages give the same ciphertexts and scales
-bit for bit."""
+bit for bit.
+
+Recorder (``utils/profiling.py``): the counter ``ckks.poly.products``, one
+a ciphertext product (``mul_relin`` of two ciphertexts), counted while the
+evaluation runs in Python, so a captured program counts its capture's once
+a replay; the Chebyshev evaluation's spans ``ckks.cheby.basis`` (the power
+basis, the affine map included) and ``ckks.cheby.tree`` (the recursion).
+Neither runs in a replay."""
 
 from __future__ import annotations
 
@@ -13,6 +20,13 @@ import dataclasses
 import math
 
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext
+from lattigo_tpu_torch.utils import profiling
+
+
+def _product(ev, op0, op1, rlk) -> Ciphertext:
+    """``ev.mul_relin(op0, op1, rlk)``, counted as ``ckks.poly.products``."""
+    profiling.count("ckks.poly.products")
+    return ev.mul_relin(op0, op1, rlk)
 
 
 def _convert_coeffs(coeffs) -> tuple[int, dict[int, complex]]:
@@ -27,7 +41,7 @@ def _compute_power_basis(n: int, C: dict[int, Ciphertext], ev, rlk):
         b = n // 2
         _compute_power_basis(a, C, ev, rlk)
         _compute_power_basis(b, C, ev, rlk)
-        C[n] = ev.rescale(ev.mul_relin(C[a], C[b], rlk))
+        C[n] = ev.rescale(_product(ev, C[a], C[b], rlk))
 
 
 def _split_coeffs(coeffs, degree, max_degree):
@@ -59,7 +73,7 @@ def _recurse(max_degree, L, M, coeffs, C, ev, rlk, split_fn):
     cq, cr = split_fn(coeffs, 1 << (M - 1), max_degree)
     res = _recurse(max_degree - (1 << (M - 1)), L, M - 1, cq, C, ev, rlk, split_fn)
     tmp = _recurse((1 << (M - 1)) - 1, L, M - 1, cr, C, ev, rlk, split_fn)
-    res = ev.mul_relin(res, C[1 << (M - 1)], rlk)
+    res = _product(ev, res, C[1 << (M - 1)], rlk)
     res = ev.add(res, tmp)
     return ev.rescale(res)
 
@@ -135,7 +149,7 @@ def _compute_power_basis_cheby(n, C, ev, rlk):
         _compute_power_basis_cheby(b, C, ev, rlk)
         if c != 0:
             _compute_power_basis_cheby(c, C, ev, rlk)
-        t = ev.rescale(ev.mul_relin(C[a], C[b], rlk))
+        t = ev.rescale(_product(ev, C[a], C[b], rlk))
         t = ev.add(t, t)
         C[n] = ev.add_const(t, -1) if c == 0 else ev.sub(t, C[c])
 
@@ -152,17 +166,19 @@ def _split_coeffs_cheby(coeffs, degree, max_degree):
 
 
 def _evaluate_cheby(ev, ct, cheby: ChebyshevInterpolation, rlk, L):
-    C = {1: ct.copy()}
-    # affine map of the input into [-1, 1] (ckks/chebyshev_evaluation.go:16-18)
-    C[1] = ev.mult_by_const(C[1], 2 / (cheby.b - cheby.a))
-    C[1] = ev.add_const(C[1], (-cheby.a - cheby.b) / (cheby.b - cheby.a))
-    C[1] = ev.rescale(C[1])
     M = (cheby.degree - 1).bit_length()
-    for i in range(2, (1 << L) + 1):
-        _compute_power_basis_cheby(i, C, ev, rlk)
-    for i in range(L + 1, M):
-        _compute_power_basis_cheby(1 << i, C, ev, rlk)
-    return _recurse(cheby.degree, L, M, cheby.coeffs, C, ev, rlk, _split_coeffs_cheby)
+    with profiling.span("ckks.cheby.basis"):
+        C = {1: ct.copy()}
+        # affine map of the input into [-1, 1] (ckks/chebyshev_evaluation.go:16-18)
+        C[1] = ev.mult_by_const(C[1], 2 / (cheby.b - cheby.a))
+        C[1] = ev.add_const(C[1], (-cheby.a - cheby.b) / (cheby.b - cheby.a))
+        C[1] = ev.rescale(C[1])
+        for i in range(2, (1 << L) + 1):
+            _compute_power_basis_cheby(i, C, ev, rlk)
+        for i in range(L + 1, M):
+            _compute_power_basis_cheby(1 << i, C, ev, rlk)
+    with profiling.span("ckks.cheby.tree"):
+        return _recurse(cheby.degree, L, M, cheby.coeffs, C, ev, rlk, _split_coeffs_cheby)
 
 
 def evaluate_cheby_fast(ev, ct, cheby: ChebyshevInterpolation, rlk) -> Ciphertext:

@@ -388,3 +388,87 @@ def test_a_program_output_dies_without_the_collector():
             assert [r() for r in refs] == [None, None, None]
     finally:
         (gc.enable if enabled else gc.disable)()
+
+
+CHEBY_SPEC = dict(log_n=8, log_slots=7, scale=float(1 << 30), log_qi=(45,) + (30,) * 7,
+                  log_pi=(45,))
+
+
+@pytest.fixture(scope="module")
+def ckks_world():
+    params = ckks.Parameters(**CHEBY_SPEC).gen_from_log_moduli()
+    kg = ckks.KeyGenerator(params, device="cpu", seed=5)
+    sk, pk = kg.gen_key_pair_sparse(hw=64)
+    enc = ckks.Encoder(params, device="cpu")
+    ct = ckks.Encryptor(params, pk=pk, device="cpu", seed=6).encrypt(
+        enc.encode(np.linspace(-8, 8, params.slots)))
+    cheby = ckks.approximate(lambda x: 1 / (np.exp(-x.real) + 1), -8, 8, 31)
+    return dict(params=params, rlk=kg.gen_relin_key(sk), ct=ct, cheby=cheby,
+                ev=ckks.Evaluator(params, device="cpu"))
+
+
+def test_a_captured_chebyshev_counts_its_products_a_replay(monkeypatch, ckks_world):
+    """The degree-31 Chebyshev as one captured program: the capture's 12
+    ciphertext products are the program's, and one replay counts them once."""
+    fake = _FakeCuda()
+    fake.install(monkeypatch)
+    w = ckks_world
+    ev, cheby = w["ev"], w["cheby"]
+    leaves, treedef = T.tree_flatten((w["ct"], w["rlk"]))
+    dyn = [l for l in leaves if isinstance(l, torch.Tensor)]
+    statics = [l for l in leaves if not isinstance(l, torch.Tensor)]
+
+    def rebuild(tensors):
+        it, st = iter(tensors), iter(statics)
+        return T.tree_unflatten(treedef, [next(it) if isinstance(l, torch.Tensor) else next(st)
+                                          for l in leaves])
+
+    prog = T._Graph(lambda ct, rlk: ckks.evaluate_cheby_fast(ev, ct, cheby, rlk), rebuild, dyn, None)
+    assert P.counters()["ckks.poly.products"] == 12  # the warm-up's; the capture ran nothing
+    assert prog.counts.captured["ckks.poly.products"] == 12
+    replay(prog, dyn)
+    assert P.counters(replayed=True)["ckks.poly.products"] == 12
+    assert P.counters(replayed=True)["tjit.replays"] == 1
+
+
+def test_the_chebyshev_records_its_basis_and_tree_spans(ckks_world):
+    w = ckks_world
+    with P.tracing(True):
+        out = ckks.evaluate_cheby_fast(w["ev"], w["ct"], w["cheby"], w["rlk"])
+    assert out.level == w["ct"].level - 7
+    records = P.spans()
+    tops = [r for r in records if r["parent"] is None]
+    assert [r["name"] for r in tops] == ["ckks.cheby.basis", "ckks.cheby.tree"]
+    basis, tree = tops
+    assert basis["end_ns"] <= tree["start_ns"]
+    inside = lambda top: sum(r["name"] == "ckks.Evaluator.mul_relin" and r["parent"] == top["id"]
+                             for r in records)
+    assert (inside(basis), inside(tree)) == (5, 7)
+    assert P.counters()["ckks.poly.products"] == 12
+    ckks.evaluate_cheby_fast(w["ev"], w["ct"], w["cheby"], w["rlk"])  # off: aggregates
+    agg = P.aggregates()
+    assert agg["ckks.cheby.basis"]["count"] == agg["ckks.cheby.tree"]["count"] == 1
+
+
+def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
+    """The CKKS cells' program, ``rescale(mul_relin)``, captured with the
+    modular kernel's launches counted: its capture's counters are the NTT
+    rows, the launches by wrapper and the call's own, no more, and as many
+    as before the polynomial evaluator had counters."""
+    fake = _FakeCuda()
+    fake.install(monkeypatch)
+    _fake_modred(monkeypatch)
+    params = ckks.Parameters(**CKKS_SPEC).gen_from_log_moduli()
+    kg = ckks.KeyGenerator(params, device="cpu", seed=3)
+    sk, pk = kg.gen_key_pair()
+    rlk = kg.gen_relin_key(sk)
+    ct = ckks.Encryptor(params, pk=pk, device="cpu", seed=4).encrypt(
+        ckks.Encoder(params, device="cpu").encode(np.linspace(-1, 1, params.slots)))
+    ev = ckks.Evaluator(params, device="cpu")
+    dyn = [ct.value[0], ct.value[1]]
+    prog = T._Graph(lambda a, b: ev.rescale(ev.mul_relin(ckks.Ciphertext([a, b], ct.scale),
+                                                         ckks.Ciphertext([a, b], ct.scale), rlk)),
+                    lambda ts: tuple(ts), dyn, None)
+    got = dict(prog.counts.captured)
+    assert got.pop("tjit.copy_in_bytes") == 2 * ct.value[0].numel() * 8
+    assert got == {"ntt.rows.tile": 29, "launches.modred": 17, "tjit.replays": 1}
