@@ -61,7 +61,9 @@ content-distinct inputs, its first result unchanged by later calls, with
 eager and replayed ``ms``, ``device_ms``, ``capture_s``, ``op_traces``, the
 launches each graph holds, replays and peak memory eager and captured;
 the Chebyshev's graphs replayed bit-equal after its ring's LRU table cache
-is flooded, and decoded against its float64 interpolant.  The ``dbfv`` and
+is flooded, and decoded against its float64 interpolant; ``tjit(forward)``
+replayed with the key it holds (the key's copy skipped) and after the key
+is written in place (copied again), both bit-equal to eager.  The ``dbfv`` and
 ``dckks`` phases also print the ``OpProfiler`` table of one extra, untimed
 call of the PIR cloud step and of ``layer1``.  Every phase prints one JSON
 line (``jit`` one a program); any failure, a failed capture included,
@@ -130,6 +132,7 @@ from lattigo_tpu_torch.parallel import launch, scaling
 from lattigo_tpu_torch.tjit import copy_tree, tjit, tree_flatten
 from lattigo_tpu_torch.tools.timing import event_ms, graph_ms
 from lattigo_tpu_torch.utils import serialization as ser
+from lattigo_tpu_torch.utils import profiling
 from lattigo_tpu_torch.utils.precision import precision_stats
 from lattigo_tpu_torch.utils.profiling import OpProfiler
 
@@ -2126,8 +2129,25 @@ def phase_jit():
     got = enc.decode_uint(bfv.Decryptor(params, forward.secret_key, device=DEV).decrypt(res))
     if not (got == m * m[::-1] % np.uint64(params.t)).all():
         fail("jit: the replayed forward does not decrypt to m * m[::-1] mod t")
+    # the copy-in skips what a program's buffers hold: the same key (the
+    # buffers hold args_a, timed last), then key0 written in place (key1 held)
+    half = swk.key0.numel() * 8
+    copy_skip = {}
+    for name, args, skip in (("same_key", (ct1, ct0, swk), 2 * half),
+                             ("key0_written", (ct0, ct1, swk), half)):
+        if name == "key0_written":
+            swk.key0.add_(1)
+        before = profiling.counters(replayed=True)
+        out = compiled(*args)
+        after = profiling.counters(replayed=True)
+        if not _trees_equal(out, forward(*args)):
+            fail(f"jit: the replay ({name}) differs from the eager call")
+        copy_skip[name] = {k: after.get(k, 0) - before.get(k, 0)
+                           for k in ("tjit.copy_in_bytes", "tjit.copy_in_skipped_bytes")}
+        if copy_skip[name]["tjit.copy_in_skipped_bytes"] != skip:
+            fail(f"jit: the replay ({name}) skipped {copy_skip[name]}, expected {skip} bytes")
     yield finish(r, calls, op_traces=compiled.trace_count(),
-                 replays=compiled.replays)
+                 replays=compiled.replays, copy_skip=copy_skip)
 
     pir = entry_dbfv_pir(device=DEV)
     pk, rlk, rot_keys = pir.ckg(), pir.rkg(), pir.rtg()

@@ -17,6 +17,22 @@ captured CUDA graph:
   outputs: callers get fresh tensors, as from a JAX program, even where
   ``fn`` returns its input or a view of it, and several results of one
   signature can be alive at once.
+* A call skips the copy of a leaf that its static buffer already holds:
+  the buffer keeps a weak reference to the tensor it last copied (at the
+  build, the build call's argument) and that tensor's ``_version``, and a
+  leaf that is the same object at the same version is not copied again (a
+  server's keys, database and masks, passed unchanged on every call).  Any
+  other leaf is copied: a new tensor, even of equal contents or at the
+  address of a freed one, or one written in place since (PyTorch's in-place
+  ops, views' included, bump the version).  A buffer that ``fn`` itself
+  writes in place (its version moved during the warm-up and the capture)
+  is copied on every call.  The port's CUDA wrappers write only into
+  tensors they allocate (``tile_ntt``, ``mxu_ntt``, ``pallas_ntt``,
+  ``basis_ext.mod_up``, ``key_switch``, ``modred_kernel``).  The one limit:
+  a write that bypasses the version counter goes unseen, such as a DLPack
+  or CuPy consumer's, or a ``ctypes`` wrapper's into a caller's tensor;
+  such a writer must call ``torch.autograd.graph.increment_version`` on
+  what it writes.  The CPU program copies every leaf.
 * A graph reads every table at the address it had during the capture.
   While an entry is built, each table that ``Ring._cached`` or
   ``Ring.kernel_cache`` hands out is recorded (:func:`note_table`, the
@@ -45,9 +61,11 @@ captured CUDA graph:
   timed on the device.
 * Counters: a capture's counter adds (NTT rows) are taken out of the
   counters and kept by the program, with the capture's kernel launches by
-  wrapper (``ring.launch_counts()``, as ``launches.<name>``), its copy-in
-  bytes (``tjit.copy_in_bytes``) and one ``tjit.replays``; each replay
-  counts them once more (``profiling.Replayed``).
+  wrapper (``ring.launch_counts()``, as ``launches.<name>``) and one
+  ``tjit.replays``; each replay counts them once more
+  (``profiling.Replayed``), and adds the bytes it copied in
+  (``tjit.copy_in_bytes``) and those it skipped
+  (``tjit.copy_in_skipped_bytes``).
 
 On the CPU (the caller asked for it, as the tests do) the signature cache
 is the same, so :meth:`trace_count` counts the same; a call runs ``fn`` on
@@ -223,15 +241,28 @@ class GraphPool:
         return self._handle
 
 
-def _replayed(prog, captured: dict, dyn) -> profiling.Replayed:
-    """``prog``'s counts a call: ``captured``, its copy-in bytes and one
-    replay; they stay in the counters after ``prog`` is freed."""
-    counts = dict(captured)
-    counts["tjit.replays"] = 1
-    counts["tjit.copy_in_bytes"] = sum(t.numel() * t.element_size() for t in dyn)
-    out = profiling.Replayed(counts)
+def _replayed(prog, captured: dict) -> profiling.Replayed:
+    """``prog``'s counts a call: ``captured`` and one replay; they stay in
+    the counters after ``prog`` is freed."""
+    out = profiling.Replayed({**captured, "tjit.replays": 1})
     weakref.finalize(prog, out.retire)
     return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _version(t: torch.Tensor) -> int | None:
+    """``t._version``; None for an inference tensor, which has none."""
+    return None if t.is_inference() else t._version
+
+
+def _source(t: torch.Tensor):
+    """``(weak reference to t, its version)``, or None where ``t`` has no
+    version to compare."""
+    v = _version(t)
+    return None if v is None else (weakref.ref(t), v)
 
 
 def _launch_counts() -> dict[str, int]:
@@ -247,7 +278,7 @@ class _Eager:
         self.fn, self.rebuild = fn, rebuild
         self.result, self.tables = _recording(
             lambda: copy_tree(_call(fn, rebuild([t.clone() for t in dyn]))))
-        self.counts = _replayed(self, {}, dyn)
+        self.counts = _replayed(self, {"tjit.copy_in_bytes": sum(map(_nbytes, dyn))})
 
     def __call__(self, dyn, p: profiling.phases):
         self.counts.replays += 1
@@ -261,11 +292,16 @@ class _Eager:
 
 class _Graph:
     """The program of a CUDA signature: a captured graph on static input
-    buffers, and the tables it reads."""
+    buffers, and the tables it reads.  ``held[i]``: the source of what
+    buffer ``i`` holds (:func:`_source`), None where the next call copies;
+    ``keep[i]``: False where ``fn`` writes buffer ``i``."""
 
     def __init__(self, fn, rebuild, dyn, pool: GraphPool | None):
         device = dyn[0].device
         self.static_in = [t.clone() for t in dyn]
+        self.nbytes = [_nbytes(t) for t in dyn]
+        held = [_source(t) for t in dyn]
+        versions = [_version(b) for b in self.static_in]
 
         def build():
             ambient = torch.cuda.current_stream(device)
@@ -289,12 +325,26 @@ class _Graph:
         with torch.cuda.device(device):
             (self.result, out, captured), self.tables = _recording(build)
         self.out_leaves, self.out_def = tree_flatten(out)
-        self.counts = _replayed(self, captured, self.static_in)
+        self.keep = [v is not None and _version(b) == v for b, v in zip(self.static_in, versions)]
+        self.held = [h if k else None for h, k in zip(held, self.keep)]
+        self.counts = _replayed(self, captured)
 
     def __call__(self, dyn, p: profiling.phases):
         p.next("tjit.copy_in", device=True)
-        for buf, t in zip(self.static_in, dyn):
-            buf.copy_(t)
+        held, keep, nbytes = self.held, self.keep, self.nbytes
+        copied = skipped = 0
+        for i, t in enumerate(dyn):
+            h = held[i]
+            if h is not None and h[0]() is t and h[1] == t._version:
+                skipped += nbytes[i]
+                continue
+            self.static_in[i].copy_(t)
+            copied += nbytes[i]
+            if keep[i]:
+                held[i] = _source(t)
+        added = self.counts.added
+        added["tjit.copy_in_bytes"] += copied
+        added["tjit.copy_in_skipped_bytes"] += skipped
         p.next("tjit.replay")
         self.graph.replay()
         self.counts.replays += 1

@@ -39,7 +39,8 @@ profiler and the trace; the recorder has no twin there.
 * Nothing is recorded on the device, nor synchronised, while a
   ``tjit.capture`` runs (:func:`capturing`).
 * ``tjit`` programs that replay a captured graph count each replay as the
-  counters their capture added (:class:`Replayed`), derived when read.
+  counters their capture added (:class:`Replayed`), derived when read,
+  and what each call adds itself (the bytes it copied in and skipped).
 
 Readers: :func:`spans`, :func:`aggregates`, :func:`counters` return plain
 data; :func:`reset` clears them.
@@ -339,23 +340,32 @@ def _resolve() -> None:
 
 
 class Replayed:
-    """What a captured program adds to the counters each replay: the
+    """What a captured program adds to the counters: each replay, the
     counters its capture added (``captured``), counted ``replays`` times when
-    read.  A program holds one; when the program is freed its counts stay
-    (:meth:`retire`)."""
+    read; and the adds its calls make themselves (``added``, which varies
+    from call to call).  A program holds one; when the program is freed its
+    counts stay (:meth:`retire`)."""
 
-    __slots__ = ("captured", "replays")
+    __slots__ = ("captured", "replays", "added")
 
     def __init__(self, captured: dict):
         self.captured = {k: v for k, v in captured.items() if v}
         self.replays = 0
+        self.added = defaultdict(int)
         _REPLAYED.add(self)
 
+    def counts(self) -> dict:
+        """Counter -> what the program's calls counted so far."""
+        out = defaultdict(int, self.added)
+        for k, v in self.captured.items():
+            out[k] += v * self.replays
+        return out
+
     def retire(self) -> None:
-        """Folds the replays counted so far into the counters."""
+        """Folds the calls counted so far into the counters."""
         if self in _REPLAYED:
-            for k, v in self.captured.items():
-                _COUNTERS[k] += v * self.replays
+            for k, v in self.counts().items():
+                _COUNTERS[k] += v
             _REPLAYED.discard(self)
 
 
@@ -377,16 +387,17 @@ def counted():
 
 
 def counters(replayed: bool = False) -> dict[str, int]:
-    """The counters: plain adds and the live programs' replays (captured x
-    replays).  ``replayed=True``: only what the programs' calls count
-    (``tjit.replays``, ``tjit.copy_in_bytes``, and a graph's captured
-    launches and NTT rows)."""
+    """The counters: plain adds and the live programs' calls (captured x
+    replays, and their own adds).  ``replayed=True``: only what the
+    programs' calls count (``tjit.replays``, ``tjit.copy_in_bytes``,
+    ``tjit.copy_in_skipped_bytes``, and a graph's captured launches and NTT
+    rows)."""
     out: dict = defaultdict(int)
     if not replayed:
         out.update(_COUNTERS)
     for r in list(_REPLAYED):
-        for k, v in r.captured.items():
-            out[k] += v * r.replays
+        for k, v in r.counts().items():
+            out[k] += v
     return {k: v for k, v in out.items() if v}
 
 
@@ -410,7 +421,7 @@ def spans() -> list[dict]:
 
 def reset() -> None:
     """Clears span records, aggregates, pending event pairs and counters;
-    the live programs' replays count from 0."""
+    the live programs' calls count from 0."""
     _RECORDS.clear()
     _PENDING.clear()
     _MARKS.clear()
@@ -419,6 +430,7 @@ def reset() -> None:
     _COUNTERS.clear()
     for r in list(_REPLAYED):
         r.replays = 0
+        r.added.clear()
 
 
 def spanned(prefix: str):

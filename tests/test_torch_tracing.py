@@ -193,23 +193,141 @@ def replay(prog, dyn):
 def test_a_graph_keeps_its_capture_counts_and_counts_them_a_replay(monkeypatch):
     """Warm-up and capture each transform 2 x 3 rows; the counters keep the
     warm-up's (the capture ran nothing), the program the capture's, and each
-    replay counts them once more; a freed program's counts stay."""
+    replay counts them once more, with the bytes it copied in or skipped
+    (the build's own argument is held, a copy of it is not); a freed
+    program's counts stay."""
     fake = _FakeCuda()
     fake.install(monkeypatch)
     ring = ring_mod.Ring(256, [12289, 40961, 7681], device="cpu")
     x = torch.zeros(3, 256, dtype=torch.int64)
     prog = T._Graph(_ring_fn(ring), lambda ts: (ts[0],), [x], None)
     assert P.counters() == {"ntt.rows.tile": 6}
-    assert prog.counts.captured == {"ntt.rows.tile": 6, "tjit.replays": 1,
-                                    "tjit.copy_in_bytes": x.numel() * 8}
-    for _ in range(3):
-        replay(prog, [x])
+    assert prog.counts.captured == {"ntt.rows.tile": 6, "tjit.replays": 1}
+    for arg in (x, x.clone(), x):
+        replay(prog, [arg])
     assert P.counters()["ntt.rows.tile"] == 6 + 3 * 6
     assert P.counters(replayed=True) == {"ntt.rows.tile": 18, "tjit.replays": 3,
-                                         "tjit.copy_in_bytes": 3 * x.numel() * 8}
+                                         "tjit.copy_in_bytes": 2 * x.numel() * 8,
+                                         "tjit.copy_in_skipped_bytes": x.numel() * 8}
     del prog
     gc.collect()
     assert P.counters()["ntt.rows.tile"] == 24 and P.counters(replayed=True) == {}
+
+
+def _graph(fn, dyn):
+    """``fn``'s program on the tensors ``dyn`` (the capture API faked), whose
+    replay does what a CUDA graph's does: runs ``fn`` on the static buffers
+    into the static outputs."""
+    prog = T._Graph(fn, tuple, dyn, None)
+
+    def run():
+        for out, got in zip(prog.out_leaves, T.tree_flatten(fn(*prog.static_in))[0]):
+            out.copy_(got)
+
+    prog.graph.replay = run
+    return prog
+
+
+def _keyed(ct, key):
+    return ct * key + 1
+
+
+def _key_and_cts():
+    """A key of 512 bytes and three ciphertexts of 64."""
+    return torch.arange(64).reshape(8, 8), [torch.full((8,), i) for i in range(3)]
+
+
+def _copied() -> tuple[int, int]:
+    c = P.counters(replayed=True)
+    return c.get("tjit.copy_in_bytes", 0), c.get("tjit.copy_in_skipped_bytes", 0)
+
+
+def test_a_replay_with_the_same_key_copies_only_the_ciphertext(monkeypatch):
+    _FakeCuda().install(monkeypatch)
+    key, cts = _key_and_cts()
+    prog = _graph(_keyed, [cts[0], key])
+    for ct in cts[1:] + cts[:1]:
+        assert torch.equal(replay(prog, [ct, key]), _keyed(ct, key))
+    assert _copied() == (3 * 64, 3 * 512)
+    assert P.counters(replayed=True)["tjit.replays"] == 3
+
+
+def test_a_key_written_in_place_is_copied_again(monkeypatch):
+    """``key.add_(1)`` bumps its version: the next call copies it and
+    computes with the new key; the call after that skips it again."""
+    _FakeCuda().install(monkeypatch)
+    key, (ct, *_) = _key_and_cts()
+    prog = _graph(_keyed, [ct, key])
+    replay(prog, [ct, key])
+    assert _copied() == (0, 64 + 512)
+    key.add_(1)
+    assert torch.equal(replay(prog, [ct, key]), _keyed(ct, key))
+    assert _copied() == (512, 2 * 64 + 512)
+    key[0].mul_(3)  # through a view: the same version counter
+    assert torch.equal(replay(prog, [ct, key]), _keyed(ct, key))
+    assert _copied() == (2 * 512, 3 * 64 + 512)
+    replay(prog, [ct, key])
+    assert _copied() == (2 * 512, 4 * 64 + 2 * 512)
+
+
+def test_another_tensor_of_equal_contents_is_copied(monkeypatch):
+    _FakeCuda().install(monkeypatch)
+    key, (ct, *_) = _key_and_cts()
+    prog = _graph(_keyed, [ct, key])
+    other = key.clone()
+    for _ in range(2):  # copied, then held
+        assert torch.equal(replay(prog, [ct, other]), _keyed(ct, key))
+    assert _copied() == (512, 2 * 64 + 512)
+
+
+def test_a_freed_source_is_copied(monkeypatch):
+    """The buffer's source is held weakly: freeing it leaves a dead
+    reference, and a new tensor (of equal contents, perhaps at the freed
+    one's address, at version 0) is copied."""
+    _FakeCuda().install(monkeypatch)
+    key, (ct, *_) = _key_and_cts()
+    prog = _graph(_keyed, [ct, key])
+    source = prog.held[1][0]
+    del key
+    gc.collect()
+    assert source() is None
+    key, _ = _key_and_cts()
+    assert key._version == 0
+    assert torch.equal(replay(prog, [ct, key]), _keyed(ct, key))
+    assert _copied() == (512, 64)
+
+
+def test_an_argument_the_program_writes_is_copied_every_call(monkeypatch):
+    """``fn`` writes its first argument in place (``x.mul_(2)``): the
+    build marks that buffer to be copied every call; three calls with the
+    same tensors give what the eager function gives on copies."""
+    _FakeCuda().install(monkeypatch)
+    key, (ct, *_) = _key_and_cts()
+    ct = ct + 1
+    fn = lambda x, k: x.mul_(2) + k
+    prog = _graph(fn, [ct, key])
+    assert prog.keep == [False, True] and prog.held[0] is None
+    want = fn(ct.clone(), key)
+    for _ in range(3):
+        assert torch.equal(replay(prog, [ct, key]), want)
+    assert torch.equal(ct, torch.full((8,), 1))
+    assert _copied() == (3 * 64, 3 * 512)
+
+
+def test_copy_in_mb_reads_the_bytes_copied(monkeypatch):
+    """The benchmark's ``tjit.copy_in_mb`` reads the bytes a replay copied,
+    the ciphertext's, not the key's it skipped."""
+    from fhe_bench import run
+
+    _FakeCuda().install(monkeypatch)
+    key, cts = _key_and_cts()
+    prog = _graph(_keyed, [cts[0], key])
+    for ct in cts[1:] + cts[:1]:
+        replay(prog, [ct, key])
+    assert run.load_module("metrics", "tjit.copy_in_mb").read(None) == pytest.approx(64 / 1e6)
+    del prog
+    gc.collect()
+    assert P.counters()["tjit.copy_in_bytes"] == 3 * 64  # a freed program's counts stay
 
 
 def test_nothing_is_recorded_on_the_device_inside_a_capture(monkeypatch):
@@ -454,7 +572,8 @@ def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
     """The CKKS cells' program, ``rescale(mul_relin)``, captured with the
     modular kernel's launches counted: its capture's counters are the NTT
     rows, the launches by wrapper and the call's own, no more, and as many
-    as before the polynomial evaluator had counters."""
+    as before the polynomial evaluator had counters; a replay on new
+    ciphertexts copies their bytes in."""
     fake = _FakeCuda()
     fake.install(monkeypatch)
     _fake_modred(monkeypatch)
@@ -469,6 +588,6 @@ def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
     prog = T._Graph(lambda a, b: ev.rescale(ev.mul_relin(ckks.Ciphertext([a, b], ct.scale),
                                                          ckks.Ciphertext([a, b], ct.scale), rlk)),
                     lambda ts: tuple(ts), dyn, None)
-    got = dict(prog.counts.captured)
-    assert got.pop("tjit.copy_in_bytes") == 2 * ct.value[0].numel() * 8
-    assert got == {"ntt.rows.tile": 29, "launches.modred": 17, "tjit.replays": 1}
+    assert prog.counts.captured == {"ntt.rows.tile": 29, "launches.modred": 17, "tjit.replays": 1}
+    replay(prog, [t.clone() for t in dyn])
+    assert P.counters(replayed=True)["tjit.copy_in_bytes"] == 2 * ct.value[0].numel() * 8
