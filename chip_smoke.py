@@ -292,20 +292,20 @@ def time_turns(fns, reps: int = REPS // 2) -> list[float]:
     return [statistics.mean(t) for t in times]
 
 
-reset_counts = ring_mod.reset_launch_counts
-read_counts = ring_mod.launch_counts
+reset_counts = _build.reset_launch_counts
+read_counts = _build.launch_counts
 
 
 @contextlib.contextmanager
 def all_plain():
     """Every kernel wrapper on its plain version: the NTT schedules
     (``Ring.FORCE_KERNEL``) and the modular arithmetic
-    (``modred_kernel.FORCE_PLAIN``)."""
-    ring_mod.FORCE_KERNEL, mk.FORCE_PLAIN = "plain", True
+    (``_build.FORCE_PLAIN``)."""
+    ring_mod.FORCE_KERNEL, _build.FORCE_PLAIN = "plain", True
     try:
         yield
     finally:
-        ring_mod.FORCE_KERNEL, mk.FORCE_PLAIN = None, False
+        ring_mod.FORCE_KERNEL, _build.FORCE_PLAIN = None, False
 
 
 def plain_of(name: str, ring, x, limbs, inverse):
@@ -474,7 +474,7 @@ def record_calls(run) -> list[tuple]:
     the shapes the main path gives each kernel.  The calls of the modular
     kernels it makes wait in PENDING_MODARITH for the next
     ``measure_calls``."""
-    with ring_mod.record_transforms() as calls, mk.record() as modarith:
+    with ring_mod.record_transforms() as calls, _build.record() as modarith:
         run()
     torch.cuda.synchronize()
     PENDING_MODARITH.extend(modarith)
@@ -502,7 +502,7 @@ def check_launched(label: str, calls, counts: dict) -> None:
 # the modular kernels at the shapes and layouts the paths give them
 # ---------------------------------------------------------------------------
 
-PENDING_MODARITH: list = []  # mk.record() entries not yet checked
+PENDING_MODARITH: list = []  # _build.record() entries not yet checked
 # modarith_key -> (its check_modarith row, the record): the record keeps
 # the tables and params of its key alive, so that no address or id in a
 # key is reused
@@ -1313,8 +1313,7 @@ def drive(params_idx: int, batch: tuple, label: str) -> dict:
     out = forward(ct0, ct1, swk)
     torch.cuda.synchronize()
     counts = read_counts()
-    copies = dict(modred=mk.modarith.copies, mod_up=basis_ext.mod_up.copies,
-                  key_switch=key_switch.inner_product.copies)
+    copies = _build.copy_counts()
 
     enc = bfv.Encoder(params, device=DEV)
     dec = bfv.Decryptor(params, forward.secret_key, device=DEV)
@@ -2425,7 +2424,7 @@ def phase_profile_replays() -> None:
     """One replay of ``tjit(forward)`` at PN12QP109 and of the PIR cloud's
     graph at PN13QP218 x 8 rows, traced by kernel name; then the same
     programs captured anew with the modular arithmetic on its plain version
-    (``modred_kernel.FORCE_PLAIN``) and traced the same way: the before and
+    (``_build.FORCE_PLAIN``) and traced the same way: the before and
     the after in one call."""
     forward, fargs = entry(device=DEV)
     pir = entry_dbfv_pir(device=DEV)
@@ -2437,11 +2436,11 @@ def phase_profile_replays() -> None:
                                 ("PN13QP218 PIR cloud", pir.cloud, pargs)):
             program = tjit(fn)
             reset_counts()
-            mk.FORCE_PLAIN = modular == "plain"
+            _build.FORCE_PLAIN = modular == "plain"
             try:
                 program(*args)  # warm-up and capture: each launch twice
             finally:
-                mk.FORCE_PLAIN = False
+                _build.FORCE_PLAIN = False
             held = {k: v // 2 for k, v in read_counts().items()}
             program(*args)
             trace(label, lambda: program(*args), program="replay", modular=modular,

@@ -358,13 +358,13 @@ def _pir_cloud_rank(params, device_type: str, query, rows, masks, rlk, rot_keys,
     counts = {}
 
     def stage(name, fn):
-        ring_mod.reset_launch_counts()
+        _build.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         if cuda:
             torch.cuda.synchronize(dev)
         seconds[name].append(time.perf_counter() - t0)
-        counts.setdefault(name, ring_mod.launch_counts())
+        counts.setdefault(name, _build.launch_counts())
         return out
 
     first = None
@@ -670,13 +670,13 @@ def _dryrun_rank(params, device_type: str) -> dict:
     seconds, counts, digests = {}, {}, {}
 
     def stage(name, fn):
-        ring_mod.reset_launch_counts()
+        _build.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds[name] = time.perf_counter() - t0
-        counts[name] = ring_mod.launch_counts()
+        counts[name] = _build.launch_counts()
         return out
 
     def check(ok: bool, what: str) -> None:

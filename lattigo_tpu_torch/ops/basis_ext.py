@@ -8,16 +8,14 @@ packages agree bit for bit (the reference itself uses float64 there).
 
 All functions broadcast over leading dims of ``[..., L, N]`` tensors.
 
-:func:`mod_up` launches ``csrc/mod_up.cu`` for a CUDA tensor (one thread a
-coefficient column; no TPU kernel: XLA fuses the JAX function into one
-device pass under ``jax.jit``); its plain version :func:`mod_up_plain`
-serves CPU tensors.  Bound on the GPU: the operations from ls = 2 on
+:func:`mod_up` launches ``csrc/mod_up.cu`` through ``_build`` for a CUDA
+tensor (one thread a coefficient column; no TPU kernel: XLA fuses the JAX
+function into one device pass under ``jax.jit``); its plain version
+:func:`mod_up_plain` serves CPU tensors.  Bound on the GPU: the operations from ls = 2 on
 (``(ls (k + 1) + k)`` Montgomery products a column), else the bytes.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -85,50 +83,12 @@ class ModUpParams:
         return self._sel[key]
 
 
-_lib = None
-# mod_up_launch: x and its [B, ls, N] strides; tables, sel, out; B, N; ls,
-# ld, k, centered; the stream
-ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3
-            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("mod_up")
-        lib.mod_up_launch.argtypes = ARGTYPES
-        lib.mod_up_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _takes_kernel(x: torch.Tensor) -> bool:
-    """Whether :func:`mod_up` launches the kernel for ``x``: an int64 CUDA
-    tensor (unless ``modred_kernel.FORCE_PLAIN``); a CPU tensor takes the
-    plain version; anything else raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda" or x.dtype != torch.int64:
-        raise TypeError(f"mod_up takes int64 tensors on cpu or cuda, got {x.dtype} on {x.device}")
-    return not mk.FORCE_PLAIN
-
-
-def _launch(x: torch.Tensor, strides, mp: ModUpParams, sel: torch.Tensor, out: torch.Tensor,
-            centered: bool) -> int:
-    """Launches the kernel on the current stream of ``out``'s device;
-    returns the C entry's error (0: launched)."""
-    ls, k, n = x.shape[-2], out.shape[-2], x.shape[-1]
-    return mk.launch_on(out.device, lambda stream: _library().mod_up_launch(
-        x.data_ptr(), *strides, mp.packed_.data_ptr(), sel.data_ptr(), out.data_ptr(),
-        out.numel() // (k * n), n, ls, len(mp.dst), k, int(centered), stream))
-
-
 def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None, centered: bool = False) -> torch.Tensor:
     """:func:`mod_up_plain` as one launch of ``csrc/mod_up.cu`` for a CUDA
     tensor; the plain version for a CPU tensor."""
     ls = x.shape[-2]
     assert ls == len(mp.src), (ls, len(mp.src))
-    if not _takes_kernel(x):
+    if not _build.takes_kernel("mod_up", x):
         return mod_up_plain(x, mp, dst_sel, centered)
     return _mod_up_kernel(x, mp, dst_sel, centered)
 
@@ -136,31 +96,21 @@ def mod_up(x: torch.Tensor, mp: ModUpParams, dst_sel=None, centered: bool = Fals
 @profiling.timed("kernel.mod_up")
 def _mod_up_kernel(x: torch.Tensor, mp: ModUpParams, dst_sel, centered: bool) -> torch.Tensor:
     """:func:`mod_up`'s launch (its host side is the span ``kernel.mod_up``)."""
-    ls = x.shape[-2]
+    ls, n = x.shape[-2], x.shape[-1]
     if x.device != mp.packed_.device:
         raise ValueError(f"x on {x.device}, basis tables on {mp.packed_.device}")
     sel = mp.sel_vector(dst_sel)
     plan = mk.launch_plan((x,))
-    out = torch.empty((*x.shape[:-2], len(sel), x.shape[-1]), dtype=torch.int64,
-                      device=x.device)
+    out = torch.empty((*x.shape[:-2], len(sel), n), dtype=torch.int64, device=x.device)
     if out.numel() == 0:
         return out
-    err = _launch(plan.operands[0].tensor, plan.operands[0].strides, mp, sel, out, centered)
-    if err == -2:
-        raise RuntimeError(f"mod_up_launch does not take {ls} -> {len(sel)} limbs "
-                           f"over {plan.dims}")
-    if err != 0:
-        raise RuntimeError(f"mod_up_launch failed with CUDA error {err}")
-    mod_up.launches += 1
-    mod_up.copies += plan.copies
-    if mk._RECORD is not None:
-        mk._RECORD.append(("mod_up", ((tuple(x.shape), tuple(x.stride())),),
-                           (mp, dst_sel, centered)))
+    xv, strides = plan.operands[0]
+    _build.launch("mod_up", x.device, (
+        xv.data_ptr(), *strides, mp.packed_.data_ptr(), sel.data_ptr(), out.data_ptr(),
+        out.numel() // (len(sel) * n), n, ls, len(mp.dst), len(sel), int(centered),
+    ), lambda: f"{ls} -> {len(sel)} limbs over {plan.dims}", copies=plan.copies,
+        record=("mod_up", (x,), (mp, dst_sel, centered)))
     return out
-
-
-mod_up.launches = 0  # launches of csrc/mod_up.cu
-mod_up.copies = 0  # input copies the launch plans made
 
 
 def mod_up_plain(x: torch.Tensor, mp: ModUpParams, dst_sel=None,

@@ -21,14 +21,11 @@ permuted first.  The result is one new ``[2, ..., L, N]`` tensor, the two
 key halves.
 
 Bound on the GPU: the bytes (``d`` read once, both key halves and the map
-once, both outputs written once).  A CUDA tensor launches the kernel or
-raises; ``modred_kernel.FORCE_PLAIN`` sends it to the plain version, as it
-does the other modular kernels.
+once, both outputs written once).  Which calls launch, and the launch
+itself, are ``_build``'s, as for the other modular kernels.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -73,10 +70,6 @@ def inner_product_plain(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T
     return torch.stack((fold(key0), fold(key1)))
 
 
-def _takes_kernel(operands) -> bool:
-    return mk.takes_kernel(operands, "the key switch")
-
-
 def d_plan(d: T, beta_axis: int) -> tuple[T, tuple[int, int, int, int], tuple[int, ...], int]:
     """``d`` as the kernel reads it: ``(tensor, (batch, block, limb,
     coefficient) strides, batch shape, copies)``.  The batch dims collapse
@@ -84,42 +77,13 @@ def d_plan(d: T, beta_axis: int) -> tuple[T, tuple[int, int, int, int], tuple[in
     moved before the limbs."""
     dv = d.movedim(beta_axis, -3)
     copies = 0
-    st = mk._strides(dv.select(-3, 0), dv.shape[:-3] + dv.shape[-2:])
+    st = mk.view_strides(dv.select(-3, 0), dv.shape[:-3] + dv.shape[-2:])
     if st is None:
         dv = dv.contiguous()
         copies = 1
-        st = mk._strides(dv.select(-3, 0), dv.shape[:-3] + dv.shape[-2:])
+        st = mk.view_strides(dv.select(-3, 0), dv.shape[:-3] + dv.shape[-2:])
     sb, sl, sn = st
     return dv, (sb, dv.stride(-3) if dv.shape[-3] != 1 else 0, sl, sn), dv.shape[:-3], copies
-
-
-_lib = None
-# key_switch_launch: d, its 4 strides; key0, key1, their 3 strides; q, qinv,
-# u0; ql, idx; out; B, N; L, beta; the stream
-ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("key_switch")
-        lib.key_switch_launch.argtypes = ARGTYPES
-        lib.key_switch_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _launch(d: T, dstr, key0: T, key1: T, ring, ql: T, index: T | None, out: T,
-            beta: int) -> int:
-    """Launches the kernel on the current stream of ``out``'s device;
-    returns the C entry's error (0: launched)."""
-    dstr = np.array(dstr, dtype=np.int64)
-    kstr = np.array(key0.stride(), dtype=np.int64)
-    B, L, N = out.numel() // (2 * out.shape[-2] * out.shape[-1]), out.shape[-2], out.shape[-1]
-    return mk.launch_on(out.device, lambda stream: _library().key_switch_launch(
-        d.data_ptr(), dstr.ctypes.data, key0.data_ptr(), key1.data_ptr(), kstr.ctypes.data,
-        ring.q_.data_ptr(), ring.qinv_.data_ptr(), ring.u0_.data_ptr(), ql.data_ptr(),
-        None if index is None else index.data_ptr(), out.data_ptr(), B, N, L, beta, stream))
 
 
 def inner_product(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T | None = None,
@@ -127,7 +91,7 @@ def inner_product(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T | Non
     """:func:`inner_product_plain` as one launch of ``csrc/key_switch.cu``
     for CUDA tensors; the plain version for CPU tensors."""
     operands = (d, key0, key1, ring.q_) + (() if index is None else (index,))
-    if not _takes_kernel(operands):
+    if not _build.takes_kernel("key_switch", *operands):
         return inner_product_plain(d, key0, key1, ring, limbs, beta, index, beta_axis)
     return _inner_product_kernel(d, key0, key1, ring, limbs, beta, index, beta_axis)
 
@@ -157,20 +121,13 @@ def _inner_product_kernel(d: T, key0: T, key1: T, ring, limbs, beta: int, index:
     out = torch.empty((2, *batch, len(limbs), n), dtype=torch.int64, device=d.device)
     if out.numel() == 0:
         return out
-    err = _launch(dv, dstr, key0, key1, ring, ring.limb_vector(limbs), index, out, beta)
-    if err == -2:
-        raise RuntimeError(f"key_switch_launch does not take d {tuple(d.shape)} with {beta} "
-                           "blocks")
-    if err != 0:
-        raise RuntimeError(f"key_switch_launch failed with CUDA error {err}")
-    inner_product.launches += 1
-    inner_product.copies += copies
-    if mk._RECORD is not None:
-        mk._RECORD.append(("key_switch", tuple((tuple(t.shape), tuple(t.stride()))
-                                               for t in (d, key0, key1)),
-                           (ring, limbs, beta, beta_axis, index)))
+    dstr, kstr = np.array(dstr, dtype=np.int64), np.array(key0.stride(), dtype=np.int64)
+    _build.launch("key_switch", d.device, (
+        dv.data_ptr(), dstr.ctypes.data, key0.data_ptr(), key1.data_ptr(), kstr.ctypes.data,
+        ring.q_.data_ptr(), ring.qinv_.data_ptr(), ring.u0_.data_ptr(),
+        ring.limb_vector(limbs).data_ptr(),
+        None if index is None else index.data_ptr(), out.data_ptr(),
+        out.numel() // (2 * len(limbs) * n), n, len(limbs), beta,
+    ), lambda: f"d {tuple(d.shape)} with {beta} blocks", copies=copies,
+        record=("key_switch", (d, key0, key1), (ring, limbs, beta, beta_axis, index)))
     return out
-
-
-inner_product.launches = 0  # launches of csrc/key_switch.cu
-inner_product.copies = 0  # operand copies the launches made

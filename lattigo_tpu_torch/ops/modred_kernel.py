@@ -9,21 +9,19 @@ compositions of its functions), which a CPU tensor takes.
 
 Every wrapper broadcasts its operands like the plain version and returns a
 new contiguous tensor of the broadcast shape.  :func:`launch_plan` maps the
-operands onto one ``[B, L, N]`` view of that shape: each operand becomes a
-tensor and its ``(B, L, N)`` strides (0 where it broadcasts); where an
-operand's leading dims cannot collapse into one stride the plan takes one
-``.contiguous()`` copy of it (counted in ``copies``).
+operands onto one ``[B, L, N]`` view of that shape (:func:`view_strides`,
+which ``basis_ext.mod_up`` and ``key_switch.d_plan`` use too): each operand
+becomes a tensor and its ``(B, L, N)`` strides (0 where it broadcasts);
+where an operand's leading dims cannot collapse into one stride the plan
+takes one ``.contiguous()`` copy of it (counted, ``_build.copy_counts``).
 
 Bound on the GPU: the bytes (each operand read once, the output written
-once).  A CUDA tensor launches the kernel or raises; ``FORCE_PLAIN`` (set
-only by ``chip_smoke.py``, to trace the same path on the plain version)
-sends it to the plain version.
+once).  Which calls launch, and the launch itself, are ``_build``'s
+(``_build.FORCE_PLAIN`` sends CUDA tensors to the plain version).
 """
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import math
 from typing import NamedTuple
 
@@ -35,11 +33,6 @@ from lattigo_tpu_torch.ops import modred
 from lattigo_tpu_torch.utils import profiling
 
 T = torch.Tensor
-
-# Route CUDA tensors to the plain version instead of the kernels (this
-# module's, basis_ext.mod_up's and key_switch.inner_product's):
-# chip_smoke.py's before / after trace.
-FORCE_PLAIN = False
 
 SLOTS = ("x", "y", "z", "q", "qinv", "u0", "u1")  # csrc/modred.cu Slot
 
@@ -91,7 +84,7 @@ class Plan(NamedTuple):
     copies: int  # operands copied because their leading dims do not collapse
 
 
-def _strides(t: T, full: tuple[int, ...]) -> tuple[int, int, int] | None:
+def view_strides(t: T, full: tuple[int, ...]) -> tuple[int, int, int] | None:
     """``t``'s strides over the ``[B, L, N]`` view of ``t`` broadcast to
     ``full``; None where its leading dims cannot collapse into one stride."""
     e = t.expand(full)
@@ -113,92 +106,13 @@ def launch_plan(operands) -> Plan:
     full = (1,) * max(0, 2 - len(shape)) + shape
     ops, copies = [], 0
     for t in operands:
-        st = _strides(t, full)
+        st = view_strides(t, full)
         if st is None:
             t = t.expand(full).contiguous()
             copies += 1
-            st = _strides(t, full)
+            st = view_strides(t, full)
         ops.append(Operand(t, st))
     return Plan(shape, (math.prod(full[:-2]), full[-2], full[-1]), tuple(ops), copies)
-
-
-def takes_kernel(operands, what: str) -> bool:
-    """Whether a call of ``what`` on ``operands`` launches its kernel: all
-    on one CUDA device as int64 (unless ``FORCE_PLAIN``); all on the CPU
-    takes the plain version; anything else raises."""
-    devices = {t.device for t in operands}
-    if devices == {torch.device("cpu")}:
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{what} takes tensors on one device, got {sorted(map(str, devices))}")
-    if any(t.dtype != torch.int64 for t in operands):
-        raise TypeError(f"{what} takes int64 tensors (uint64 bit patterns)")
-    return not FORCE_PLAIN
-
-
-def _takes_kernel(operands) -> bool:
-    return takes_kernel(operands, "the modular pass")
-
-
-_lib = None
-# modred_launch: op, the [SLOTS, 4] operand table, out; B, L, N; the stream
-ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
-    ctypes.c_void_p]
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("modred")
-        lib.modred_launch.argtypes = ARGTYPES
-        lib.modred_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _stream(device: torch.device) -> int:
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def launch_on(device: torch.device, launch) -> int:
-    """``launch(stream)`` with ``device`` current and its current stream:
-    what a C entry returns."""
-    if device.index == torch.cuda.current_device():
-        return launch(_stream(device))
-    with torch.cuda.device(device):
-        return launch(_stream(device))
-
-
-def _launch(code: int, slots: tuple[str, ...], plan: Plan, out: T) -> int:
-    """Launches op ``code`` on the current stream of ``out``'s device;
-    returns the C entry's error (0: launched)."""
-    desc = np.zeros((len(SLOTS), 4), dtype=np.int64)
-    for slot, op in zip(slots, plan.operands):
-        desc[SLOTS.index(slot)] = (op.tensor.data_ptr(), *op.strides)
-    return launch_on(out.device, lambda stream: _library().modred_launch(
-        code, desc.ctypes.data, out.data_ptr(), *plan.dims, stream))
-
-
-# the list that record() fills, while one is open
-_RECORD: list | None = None
-
-
-@contextlib.contextmanager
-def record():
-    """Yields a list that collects ``(name, layouts, constants)`` for every
-    launch of the modular pass, of ``basis_ext.mod_up`` and of
-    ``key_switch.inner_product`` in the block: ``layouts`` the operands'
-    ``(shape, stride)``; ``constants`` this kernel's per-limb constant
-    operands (q, qinv, u0, u1) themselves (no copy: a capture may be
-    recording), ``mod_up``'s ``(params, dst_sel, centered)``, or the key
-    switch's ``(ring, limbs, beta, beta_axis, index)``.  The
-    calls a path gives the kernels."""
-    global _RECORD
-    prev, _RECORD = _RECORD, []
-    try:
-        yield _RECORD
-    finally:
-        _RECORD = prev
 
 
 def modarith(name: str, *operands: T) -> T:
@@ -206,7 +120,7 @@ def modarith(name: str, *operands: T) -> T:
     launch of ``csrc/modred.cu`` for CUDA tensors, the plain version for CPU
     tensors."""
     code, slots, plain = OPS[name]
-    if not _takes_kernel(operands):
+    if not _build.takes_kernel("modred", *operands):
         return plain(*operands)
     return _modarith_kernel(name, code, slots, operands)
 
@@ -218,21 +132,14 @@ def _modarith_kernel(name: str, code: int, slots, operands) -> T:
     out = torch.empty(plan.shape, dtype=torch.int64, device=operands[0].device)
     if out.numel() == 0:
         return out
-    err = _launch(code, slots, plan, out)
-    if err == -2:
-        raise RuntimeError(f"modred_launch does not take {name} over {plan.dims}")
-    if err != 0:
-        raise RuntimeError(f"modred_launch failed with CUDA error {err}")
-    modarith.launches += 1
-    modarith.copies += plan.copies
-    if _RECORD is not None:
-        _RECORD.append((name, tuple((tuple(t.shape), tuple(t.stride())) for t in operands),
-                        tuple(t for s, t in zip(slots, operands) if s in SLOTS[3:])))
+    desc = np.zeros((len(SLOTS), 4), dtype=np.int64)
+    for slot, op in zip(slots, plan.operands):
+        desc[SLOTS.index(slot)] = (op.tensor.data_ptr(), *op.strides)
+    _build.launch("modred", out.device, (code, desc.ctypes.data, out.data_ptr(), *plan.dims),
+                  lambda: f"{name} over {plan.dims}", copies=plan.copies,
+                  record=(name, operands,
+                          tuple(t for s, t in zip(slots, operands) if s in SLOTS[3:])))
     return out
-
-
-modarith.launches = 0  # launches of csrc/modred.cu, any op
-modarith.copies = 0  # operand copies the launch plans made
 
 
 def cred(a: T, q: T) -> T:

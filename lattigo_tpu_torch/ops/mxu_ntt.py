@@ -45,13 +45,12 @@ warps fills an SM's registers; ``PERF.md`` has the measured times.
 
 Plain version: :func:`ntt_mxu_plain` repeats the same arithmetic step by step
 on tensors, with the digit products as float64 matmuls (exact below 2^53,
-and present on both CPU and CUDA).  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+and present on both CPU and CUDA), which a CPU tensor takes
+(``_build.takes_kernel``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -365,27 +364,13 @@ def ntt_mxu_plain(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool =
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("ntt_fourstep")
-        lib.ntt_fourstep_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.ntt_fourstep_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
 
 def ntt_mxu(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = False) -> torch.Tensor:
     """Four-step NTT/InvNTT of ``x`` [..., L, N] under the limb tables
     ``limbs``; bit-exact vs the butterfly schedule, accepts lazily reduced
     inputs (any value < 2^62), output in [0, q)."""
     limbs = tuple(int(l) for l in limbs)
-    if x.device.type == "cpu":
+    if not _build.takes_kernel("ntt_fourstep", x):
         return ntt_mxu_plain(ring, x, limbs, inverse)
     return _ntt_mxu_kernel(ring, x, limbs, inverse)
 
@@ -394,8 +379,6 @@ def ntt_mxu(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = False
 def _ntt_mxu_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool) -> torch.Tensor:
     """:func:`ntt_mxu`'s launch (its host side is the span ``kernel.ntt_mxu``)."""
     _check(ring, x, limbs)
-    if x.device.type != "cuda":
-        raise TypeError(f"ntt_mxu takes tensors on cpu or cuda, got {x.device}")
     if x.device != ring.device:
         raise ValueError(f"x on {x.device}, ring tables on {ring.device}")
     t = _tables(ring, limbs, inverse)
@@ -405,20 +388,9 @@ def _ntt_mxu_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool
     mid = torch.empty_like(xc)
     out = torch.empty_like(xc)
     n = ring.n
-    with torch.cuda.device(x.device):
-        err = _library().ntt_fourstep_launch(
-            xc.data_ptr(), mid.data_ptr(), out.data_ptr(),
-            t.m_rows.data_ptr(), t.m_lanes.data_ptr(), t.tw.data_ptr(), t.consts.data_ptr(),
-            ring.limb_vector(limbs).data_ptr(),
-            xc.numel() // n, len(limbs), n // _N2, int(inverse),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ntt_fourstep_launch failed with CUDA error {err}")
-    ntt_mxu.launches += 1
-    ntt_mxu.inverse_launches += int(inverse)
+    _build.launch("ntt_fourstep", x.device, (
+        xc.data_ptr(), mid.data_ptr(), out.data_ptr(),
+        t.m_rows.data_ptr(), t.m_lanes.data_ptr(), t.tw.data_ptr(), t.consts.data_ptr(),
+        ring.limb_vector(limbs).data_ptr(), xc.numel() // n, len(limbs), n // _N2, int(inverse),
+    ), lambda: f"{xc.numel() // n} rows of N={n}", inverse=inverse)
     return out
-
-
-ntt_mxu.launches = 0  # transforms launched on the GPU, both directions
-ntt_mxu.inverse_launches = 0  # the inverse ones among them

@@ -30,13 +30,11 @@ row against ~10 int32 multiplies per butterfly).
 
 Plain version: :func:`ntt_passes_plain` runs the same split with the same
 twiddle indexing and the same Shoup tables on tensors, at any ``k`` from 1
-to ``MAX_SPLIT``.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+to ``MAX_SPLIT``; a CPU tensor takes it (``_build.takes_kernel``).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -173,27 +171,8 @@ def ntt_passes_plain(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: boo
     return modred.bred_add(y, q, cs[:, 1:2])
 
 
-_lib = None
-
-
-def _library_argtypes() -> list:
-    """x, out, tw, tws, consts, limbs; rows, L, log N, k, threads, shared
-    memory bytes, inverse; the stream."""
-    return [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("ntt_passes")
-        lib.ntt_passes_launch.argtypes = _library_argtypes()
-        lib.ntt_passes_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _launch_args(ring, x: torch.Tensor, out: torch.Tensor, limbs: tuple[int, ...],
-                 inverse: bool) -> tuple:
+def launch_args(ring, x: torch.Tensor, out: torch.Tensor, limbs: tuple[int, ...],
+                inverse: bool) -> tuple:
     """The C entry's arguments but the stream, with :func:`launch_plan`'s
     cluster, threads and shared memory."""
     plan = launch_plan(ring.n)
@@ -210,7 +189,7 @@ def ntt_passes(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = Fa
     limbs = tuple(int(l) for l in limbs)
     n = ring.n
     plan = launch_plan(n)
-    if x.device.type == "cpu":
+    if not _build.takes_kernel("ntt_passes", x):
         return ntt_passes_plain(ring, x, limbs, inverse, plan.k)
     return _ntt_passes_kernel(ring, x, limbs, inverse, plan)
 
@@ -221,30 +200,13 @@ def _ntt_passes_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: b
     """:func:`ntt_passes`'s launch (its host side is the span
     ``kernel.ntt_passes``)."""
     n = ring.n
-    if x.device.type != "cuda" or x.dtype != torch.int64:
-        raise TypeError(f"ntt_passes takes int64 tensors on cpu or cuda, got {x.dtype} on {x.device}")
     if x.device != ring.device:
         raise ValueError(f"x on {x.device}, ring tables on {ring.device}")
     _check(ring, x, limbs, plan.k)
     if not MIN_N <= n <= MAX_N:
         raise NotImplementedError(f"N={n}: the passes kernel takes N from {MIN_N} to {MAX_N}")
-
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    with torch.cuda.device(x.device):
-        err = _library().ntt_passes_launch(*_launch_args(ring, xc, out, limbs, inverse),
-                                           torch.cuda.current_stream().cuda_stream)
-    if err == -1:
-        raise RuntimeError(f"no cluster of {plan.cluster} blocks with {plan.smem_bytes} bytes "
-                           f"of shared memory fits {x.device}")
-    if err == -2:
-        raise RuntimeError(f"ntt_passes_launch does not take the plan {plan} for N={n}")
-    if err != 0:
-        raise RuntimeError(f"ntt_passes_launch failed with CUDA error {err}")
-    ntt_passes.launches += 1
-    ntt_passes.inverse_launches += int(inverse)
+    _build.launch("ntt_passes", x.device, launch_args(ring, xc, out, limbs, inverse),
+                  lambda: f"the plan {plan} for N={n}", inverse=inverse)
     return out
-
-
-ntt_passes.launches = 0  # transforms launched on the GPU (one kernel each), both directions
-ntt_passes.inverse_launches = 0  # the inverse ones among them

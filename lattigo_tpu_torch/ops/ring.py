@@ -18,6 +18,11 @@ Counterpart of ``lattigo_tpu/ops/ring.py`` (and of the reference's
   (``lattigo_tpu/ops/ring.py:197-205``, ``:289-297``).
 * The JAX package's ``Ring.ntt_roll`` is a TPU schedule of the same
   transform that :meth:`Ring.ntt` computes, and has no twin here.
+* The ring launches no kernel itself: its coefficient methods call the
+  modular pass (``modred_kernel``), its transforms the NTT wrappers, and
+  each wrapper launches, counts and records through ``_build``.
+  :func:`record_transforms` records the ring's routing decisions
+  (``plain`` and ``cross`` among them), not launches.
 * Spans and counters (``utils/profiling.py``): every transform is the span
   ``ring.ntt`` / ``ring.intt`` with its route, and adds its rows
   (``x.numel() // N``) to the counter ``ntt.rows.<route>``; every build of
@@ -109,41 +114,6 @@ def distinct_transforms(calls) -> list[tuple]:
     send to its parent."""
     return sorted({(tuple(r.moduli), shape, limbs, inverse, route)
                    for r, shape, limbs, inverse, route in calls})
-
-
-def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset: the NTT kernels by
-    direction (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...),
-    then the modular pass (``modred``), the basis extension (``mod_up``)
-    and the key switch's inner product (``key_switch``)."""
-    out = {}
-    for name, w in _kernel_wrappers().items():
-        out[name + "_fwd"] = w.launches - w.inverse_launches
-        out[name + "_inv"] = w.inverse_launches
-    for name, w in _modarith_wrappers().items():
-        out[name] = w.launches
-    return out
-
-
-def reset_launch_counts() -> None:
-    for w in _kernel_wrappers().values():
-        w.launches = w.inverse_launches = 0
-    for w in _modarith_wrappers().values():
-        w.launches = w.copies = 0
-
-
-def _kernel_wrappers() -> dict:
-    from lattigo_tpu_torch.ops import mxu_ntt, pallas_ntt, tile_ntt
-
-    return {"ntt_tile": tile_ntt.ntt_tile, "ntt_mxu": mxu_ntt.ntt_mxu,
-            "ntt_passes": pallas_ntt.ntt_passes}
-
-
-def _modarith_wrappers() -> dict:
-    from lattigo_tpu_torch.ops import basis_ext, key_switch
-
-    return {"modred": mk.modarith, "mod_up": basis_ext.mod_up,
-            "key_switch": key_switch.inner_product}
 
 
 def _tbl(vals, shape, device) -> torch.Tensor:

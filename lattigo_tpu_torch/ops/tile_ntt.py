@@ -25,13 +25,12 @@ Bound on the GPU: the larger of the bytes (16 N a row plus 16 N of twiddle
 pairs a limb) and the operations ((N/2) log N Shoup butterflies); bytes at
 the shapes the port gives it.
 
-Plain version: ``Ring._ntt_simple`` / ``Ring._intt_simple``.  A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+Plain version: ``Ring._ntt_simple`` / ``Ring._intt_simple``, which a CPU
+tensor takes (``_build.takes_kernel``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -112,25 +111,6 @@ def smem_word(b):
     return b ^ ((b >> SWZ) & 15)
 
 
-_lib = None
-
-
-def _library_argtypes() -> list:
-    """x, out, tw, consts, limbs; rows, L, log N, rows a block, threads,
-    shared memory bytes, inverse; the stream."""
-    return [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("ntt_row")
-        lib.ntt_row_launch.argtypes = _library_argtypes()
-        lib.ntt_row_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def limb_consts(ring) -> np.ndarray:
     """[L, 4] per-limb constants of the kernels: q, floor(2^128 / q) >> 64,
     N^-1 mod q and its Shoup word."""
@@ -153,7 +133,7 @@ def _build_tables(ring, inverse: bool):
             u.from_u64(limb_consts(ring), ring.device))
 
 
-def _launch_args(ring, limbs: tuple[int, ...], inverse: bool, rows: int) -> tuple[tuple, tuple]:
+def launch_args(ring, limbs: tuple[int, ...], inverse: bool, rows: int) -> tuple[tuple, tuple]:
     """The C entry's arguments for a transform of ``rows`` rows, cached: the
     pointers (tables, limbs) that follow x and out, and the ints (L, log N,
     the plan, inverse) that follow the row count."""
@@ -178,7 +158,7 @@ def ntt_tile(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = Fals
     n = ring.n
     if x.shape[-2] != len(limbs) or x.shape[-1] != n:
         raise ValueError(f"x {tuple(x.shape)} does not carry limbs {limbs} of N={n}")
-    if x.device.type == "cpu":
+    if not _build.takes_kernel("ntt_row", x):
         limbs = tuple(int(l) for l in limbs)
         return ring._intt_simple(x, limbs) if inverse else ring._ntt_simple(x, limbs)
     return _ntt_tile_kernel(ring, x, limbs, inverse)
@@ -188,8 +168,6 @@ def ntt_tile(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool = Fals
 def _ntt_tile_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: bool) -> torch.Tensor:
     """:func:`ntt_tile`'s launch (its host side is the span ``kernel.ntt_tile``)."""
     n = ring.n
-    if x.device.type != "cuda" or x.dtype != torch.int64:
-        raise TypeError(f"ntt_tile takes int64 tensors on cpu or cuda, got {x.dtype} on {x.device}")
     if x.device != ring.device:
         raise ValueError(f"x on {x.device}, ring tables on {ring.device}")
     if not MIN_N <= n <= MAX_N:
@@ -199,27 +177,7 @@ def _ntt_tile_kernel(ring, x: torch.Tensor, limbs: tuple[int, ...], inverse: boo
     rows = xc.numel() >> ring.log_n
     if rows == 0:
         return out
-    ptrs, ints = _launch_args(ring, limbs, inverse, rows)
-    dev = x.device.index
-
-    def launch() -> int:
-        return _library().ntt_row_launch(xc.data_ptr(), out.data_ptr(), *ptrs, rows, *ints,
-                                         torch._C._cuda_getCurrentRawStream(dev))
-
-    if dev == torch.cuda.current_device():
-        err = launch()
-    else:
-        with torch.cuda.device(dev):
-            err = launch()
-    if err == -2:
-        raise RuntimeError(f"ntt_row_launch does not take the plan {launch_plan(n, rows)} "
-                           f"for N={n}")
-    if err != 0:
-        raise RuntimeError(f"ntt_row_launch failed with CUDA error {err}")
-    ntt_tile.launches += 1
-    ntt_tile.inverse_launches += int(inverse)
+    ptrs, ints = launch_args(ring, limbs, inverse, rows)
+    _build.launch("ntt_row", x.device, (xc.data_ptr(), out.data_ptr(), *ptrs, rows, *ints),
+                  lambda: f"the plan {launch_plan(n, rows)} for N={n}", inverse=inverse)
     return out
-
-
-ntt_tile.launches = 0  # transforms launched on the GPU, both directions
-ntt_tile.inverse_launches = 0  # the inverse ones among them

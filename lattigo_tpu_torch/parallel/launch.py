@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from lattigo_tpu_torch import _build
 from lattigo_tpu_torch import device as _device
 
 TIMEOUT_S = 900  # a collective, or a whole run, that takes longer fails
@@ -173,7 +174,7 @@ def traced(fn, *args):
     ``World.run(traced, fn, ...)``."""
     from lattigo_tpu_torch.ops import ring
 
-    ring.reset_launch_counts()
+    _build.reset_launch_counts()
     with ring.record_transforms() as calls:
         out = fn(*args)
-    return out, ring.launch_counts(), ring.distinct_transforms(calls)
+    return out, _build.launch_counts(), ring.distinct_transforms(calls)

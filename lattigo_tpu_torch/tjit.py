@@ -26,11 +26,12 @@ captured CUDA graph:
   address of a freed one, or one written in place since (PyTorch's in-place
   ops, views' included, bump the version).  A buffer that ``fn`` itself
   writes in place (its version moved during the warm-up and the capture)
-  is copied on every call.  The port's CUDA wrappers write only into
-  tensors they allocate (``tile_ntt``, ``mxu_ntt``, ``pallas_ntt``,
-  ``basis_ext.mod_up``, ``key_switch``, ``modred_kernel``).  The one limit:
-  a write that bypasses the version counter goes unseen, such as a DLPack
-  or CuPy consumer's, or a ``ctypes`` wrapper's into a caller's tensor;
+  is copied on every call.  The port's six CUDA kernel wrappers (each
+  launching through ``_build.launch``) write only into tensors they
+  allocate, and ``tests/test_torch_kernel_outputs.py`` holds them to it.
+  The one limit: a write that bypasses the version counter goes unseen,
+  such as a DLPack or CuPy consumer's, or a ``ctypes`` wrapper's into a
+  caller's tensor;
   such a writer must call ``torch.autograd.graph.increment_version`` on
   what it writes.  The CPU program copies every leaf.
 * A graph reads every table at the address it had during the capture.
@@ -61,7 +62,7 @@ captured CUDA graph:
   timed on the device.
 * Counters: a capture's counter adds (NTT rows) are taken out of the
   counters and kept by the program, with the capture's kernel launches by
-  wrapper (``ring.launch_counts()``, as ``launches.<name>``) and one
+  kernel (``_build.launch_counts()``, as ``launches.<name>``) and one
   ``tjit.replays``; each replay counts them once more
   (``profiling.Replayed``), and adds the bytes it copied in
   (``tjit.copy_in_bytes``) and those it skipped
@@ -92,6 +93,7 @@ import weakref
 
 import torch
 
+from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.utils import profiling
 
 # id -> table handed out while an entry is built (None: no build open)
@@ -265,12 +267,6 @@ def _source(t: torch.Tensor):
     return None if v is None else (weakref.ref(t), v)
 
 
-def _launch_counts() -> dict[str, int]:
-    from lattigo_tpu_torch.ops import ring  # ring imports this module
-
-    return ring.launch_counts()
-
-
 class _Eager:
     """The program of a CPU signature: ``fn`` on copies of the arguments."""
 
@@ -314,12 +310,12 @@ class _Graph:
             del warm
             self.graph = torch.cuda.CUDAGraph()
             _register_generators(self.graph, _BUILD.values())
-            launched = _launch_counts()
+            launched = _build.launch_counts()
             with profiling.counted() as captured, capture(
                     self.graph, None if pool is None else pool.handle()):
                 out = _call(fn, rebuild(self.static_in))
             captured.update((f"launches.{k}", v - launched[k])
-                            for k, v in _launch_counts().items() if v != launched[k])
+                            for k, v in _build.launch_counts().items() if v != launched[k])
             return result, out, captured
 
         with torch.cuda.device(device):

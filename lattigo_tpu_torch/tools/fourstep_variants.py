@@ -107,9 +107,7 @@ def build(tmp: str) -> dict:
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
-        lib.ntt_fourstep_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(os.path.join(tmp, f"lib{name}.so")), "ntt_fourstep")
     return libs
 
 

@@ -19,7 +19,6 @@ import os
 import subprocess
 
 from lattigo_tpu_torch import _build
-from lattigo_tpu_torch.ops import basis_ext, key_switch, modred_kernel
 
 HARNESS = {
     "modred": r"""
@@ -128,10 +127,5 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, lib)
         finally:
             os.remove(src)
-    out = ctypes.CDLL(lib)
-    entry = getattr(out, name + "_launch")
-    entry.argtypes = {"modred": modred_kernel, "mod_up": basis_ext,
-                      "key_switch": key_switch}[name].ARGTYPES
-    entry.restype = ctypes.c_int
-    _libs[name] = out
-    return out
+    _libs[name] = _build.bind(ctypes.CDLL(lib), name)
+    return _libs[name]

@@ -44,7 +44,6 @@ import torch
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import galois, key_switch
-from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import number_theory as nt
 from lattigo_tpu_torch.ops.ring import Ring
 from lattigo_tpu_torch.tools.timing import graph_ms
@@ -98,10 +97,7 @@ def build(tmp: str) -> dict:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
         print(json.dumps({"variant": name, "ptxas": [
             ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]}))
-        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
-        lib.key_switch_launch.argtypes = key_switch.ARGTYPES
-        lib.key_switch_launch.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(os.path.join(tmp, f"lib{name}.so")), "key_switch")
     return libs
 
 
@@ -129,22 +125,22 @@ def main() -> None:
                 return key_switch.inner_product(d, k0, k1, ring, limbs, beta, index=idx,
                                                 beta_axis=axis)
 
-            mk.FORCE_PLAIN = True
+            _build.FORCE_PLAIN = True
             try:
                 want = call()
             finally:
-                mk.FORCE_PLAIN = False
+                _build.FORCE_PLAIN = False
             times = {name: [] for name in libs}
             order = list(libs)
             for name in order:
-                key_switch._lib = libs[name]
+                _build.LIBRARIES["key_switch"] = libs[name]
                 if name not in INEXACT and not torch.equal(call(), want):
                     raise RuntimeError(f"{name} disagrees with the plain version at {label}")
             del want
             for name in order + order[::-1]:
-                key_switch._lib = libs[name]
+                _build.LIBRARIES["key_switch"] = libs[name]
                 times[name].append(graph_ms(call))
-            key_switch._lib = None
+            del _build.LIBRARIES["key_switch"]
             outputs = 2 * d.numel() // beta
             n_bytes = 8 * (d.numel() + 2 * beta * L * n + outputs) + (8 * n if index else 0)
             print(json.dumps({"shape": label, "d": list(d.shape), "index": index,

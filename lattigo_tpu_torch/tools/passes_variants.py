@@ -118,10 +118,7 @@ def build(tmp: str) -> dict:
         if name in ("kernel", "min_blocks_3"):  # registers and spills
             print(json.dumps({"variant": name, "ptxas": [
                 ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]}))
-        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
-        lib.ntt_passes_launch.argtypes = pallas_ntt._library_argtypes()
-        lib.ntt_passes_launch.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(os.path.join(tmp, f"lib{name}.so")), "ntt_passes")
     return libs
 
 
@@ -155,7 +152,7 @@ def main() -> None:
             x = u.from_u64(rng.integers(0, 2**62, size=(*shape, n), dtype=np.uint64)
                            % (4 * q), dev)
             out = torch.empty_like(x)
-            args = list(pallas_ntt._launch_args(ring, x, out, limbs, inverse))
+            args = list(pallas_ntt.launch_args(ring, x, out, limbs, inverse))
             stream = torch.cuda.current_stream().cuda_stream
             calls = {name: (lib, args) for name, lib in libs.items()}
             for name, threads in THREADS.items():

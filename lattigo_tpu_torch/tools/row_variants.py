@@ -99,10 +99,7 @@ def build(tmp: str) -> dict:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
         print(json.dumps({"variant": name, "ptxas": [
             ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]}))
-        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
-        lib.ntt_row_launch.argtypes = tile_ntt._library_argtypes()
-        lib.ntt_row_launch.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(os.path.join(tmp, f"lib{name}.so")), "ntt_row")
     return libs
 
 
@@ -122,7 +119,7 @@ def main() -> None:
                            % (4 * q), dev)
             out = torch.empty_like(x)
             rows = x.numel() // n
-            ptrs, ints = tile_ntt._launch_args(ring, limbs, inverse, rows)
+            ptrs, ints = tile_ntt.launch_args(ring, limbs, inverse, rows)
             plan = tile_ntt.launch_plan(n, rows)
 
             def args(threads=plan.threads):

@@ -33,11 +33,10 @@ import torch
 from lattigo_tpu.models import bfv as jbfv
 from lattigo_tpu.models import ckks as jckks
 from lattigo_tpu.ops import u64 as ju
-from lattigo_tpu_torch import convert
+from lattigo_tpu_torch import _build, convert
 from lattigo_tpu_torch.models import bfv as tbfv
 from lattigo_tpu_torch.models import ckks as tckks
 from lattigo_tpu_torch.ops import galois, key_switch as ks
-from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import number_theory as nt
 from lattigo_tpu_torch.ops import u64 as tu
 from lattigo_tpu_torch.ops.ring import Ring
@@ -71,12 +70,14 @@ def host_lib():
 
 
 def on_host(monkeypatch, lib) -> None:
-    """CPU tensors down the key switch's kernel path, launched by the host
-    build of its source."""
-    monkeypatch.setattr(ks, "_takes_kernel", lambda operands: True)
-    monkeypatch.setattr(ks, "_library", lambda: lib)
-    monkeypatch.setattr(mk, "_stream", lambda device: 0)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    """CPU tensors down the key switch's kernel path, launched by ``lib``
+    (the host build of its source) behind the seam."""
+    monkeypatch.setattr(_build, "takes_kernel", lambda name, *tensors: name == "key_switch")
+    monkeypatch.setitem(_build.LIBRARIES, "key_switch", lib)
+
+
+def ks_launches() -> int:
+    return _build.launch_counts()["key_switch"]
 
 
 def words(rng, shape) -> np.ndarray:
@@ -128,9 +129,9 @@ def check(monkeypatch, lib, layout, beta, b, index, fill, seed) -> None:
     idx = galois.ntt_index(5, N, "cpu") if index else None
     want = ks.inner_product_plain(d, k0, k1, RING, QL, beta, idx, axis)
     on_host(monkeypatch, lib)
-    before = ks.inner_product.launches
+    before = ks_launches()
     got = ks.inner_product(d, k0, k1, RING, QL, beta, index=idx, beta_axis=axis)
-    assert ks.inner_product.launches == before + 1
+    assert ks_launches() == before + 1
     assert got.shape == want.shape == (2, *BATCHES[b], len(QL), N)
     assert torch.equal(got, want)
 
@@ -153,9 +154,9 @@ def test_source_equals_plain_on_largest_products(monkeypatch, host_lib, beta, la
 def test_source_equals_plain_on_other_layouts(monkeypatch, host_lib, layout, copies):
     """An odd coefficient offset and batch dims that do not collapse (one
     counted copy)."""
-    before = ks.inner_product.copies
+    before = _build.copy_counts()["key_switch"]
     check(monkeypatch, host_lib, layout, 9, 8, False, "random", seed=7)
-    assert ks.inner_product.copies == before + copies
+    assert _build.copy_counts()["key_switch"] == before + copies
 
 
 def test_max_products_overflow_without_the_reduction():
@@ -260,9 +261,9 @@ def test_bfv_key_switch_equals_jax(monkeypatch, host_lib, bfv_world, op):
         run = lambda ev, ct: ev.rotate_columns(ct, 3, w["rot"])
     on_host(monkeypatch, host_lib)
     stray = key_spy(monkeypatch, (key.key0, key.key1))
-    before = ks.inner_product.launches
+    before = ks_launches()
     got = run(w["t_ev"], convert.ciphertext_from_numpy(polys, "cpu"))
-    assert ks.inner_product.launches == before + 1
+    assert ks_launches() == before + 1
     assert stray == []
     for a, b in zip(convert.ciphertext_to_numpy(got), jnp_polys(want.value), strict=True):
         np.testing.assert_array_equal(a, b)
@@ -307,9 +308,9 @@ def test_ckks_key_switch_equals_jax(monkeypatch, host_lib, ckks_world, op):
         run = lambda: ev.rotate_hoisted(tct(w["ca"]), [0, 1, 2], w["rot"])
     on_host(monkeypatch, host_lib)
     stray = key_spy(monkeypatch, [k for swk in keys for k in (swk.key0, swk.key1)])
-    before = ks.inner_product.launches
+    before = ks_launches()
     got = run()
-    assert ks.inner_product.launches == before + launches
+    assert ks_launches() == before + launches
     assert stray == []
     assert sorted(got) == sorted(want)
     for k in got:
@@ -345,10 +346,10 @@ def test_a_failed_launch_raises(monkeypatch, err):
     never falls back to the plain version."""
     d, k0, k1, axis = operands(np.random.default_rng(1), "ckks", 2, (), "random")
     on_host(monkeypatch, _FailingLib(err))
-    before = ks.inner_product.launches
+    before = ks_launches()
     with pytest.raises(RuntimeError, match="key_switch_launch"):
         ks.inner_product(d, k0, k1, RING, QL, 2, beta_axis=axis)
-    assert ks.inner_product.launches == before
+    assert ks_launches() == before
 
 
 def test_other_devices_raise():
@@ -366,16 +367,15 @@ def test_cpu_takes_the_plain_version(monkeypatch):
     """On CPU tensors the wrapper is its plain version, and launches
     nothing."""
     d, k0, k1, axis = operands(np.random.default_rng(2), "bfv", 3, (3,), "random")
-    before = ks.inner_product.launches
+    before = ks_launches()
     got = ks.inner_product(d, k0, k1, RING, QL, 3, beta_axis=axis)
-    assert ks.inner_product.launches == before
+    assert ks_launches() == before
     assert torch.equal(got, ks.inner_product_plain(d, k0, k1, RING, QL, 3, beta_axis=axis))
 
 
 def test_variants_apply_to_the_kernel_source():
     """Every diagnostic variant of lattigo_tpu_torch/tools/key_switch_variants.py
     still finds the text it replaces in csrc/key_switch.cu."""
-    from lattigo_tpu_torch import _build
     from lattigo_tpu_torch.tools import key_switch_variants as kv
 
     src = open(f"{_build.CSRC}/key_switch.cu").read()

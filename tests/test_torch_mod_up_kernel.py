@@ -14,14 +14,16 @@ tolerance 0.
 * No fallback: a call whose launcher returns an error raises.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.models import bfv as tbfv
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.ops import basis_ext
-from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import number_theory as nt
 from lattigo_tpu_torch.ops import u64 as tu
 from lattigo_tpu_torch.tools import host_build
@@ -44,15 +46,17 @@ def words(rng, shape) -> torch.Tensor:
     return tu.from_u64(x, "cpu")
 
 
+def down_the_kernel_path(monkeypatch, lib) -> None:
+    """CPU tensors down ``mod_up``'s kernel path, launched by ``lib``
+    behind the seam."""
+    monkeypatch.setattr(_build, "takes_kernel", lambda name, *tensors: name == "mod_up")
+    monkeypatch.setitem(_build.LIBRARIES, "mod_up", lib)
+
+
 @pytest.fixture()
 def on_host(monkeypatch):
-    """CPU tensors down the kernel path, launched by the host build of
-    csrc/mod_up.cu behind the real wrapper."""
-    lib = host_build.load("mod_up")
-    monkeypatch.setattr(basis_ext, "_takes_kernel", lambda x: True)
-    monkeypatch.setattr(basis_ext, "_library", lambda: lib)
-    monkeypatch.setattr(mk, "_stream", lambda device: 0)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    """The host build of csrc/mod_up.cu behind the real wrapper."""
+    down_the_kernel_path(monkeypatch, host_build.load("mod_up"))
 
 
 # -- the packed tables ----------------------------------------------------------------
@@ -92,9 +96,9 @@ def test_column_routine_equals_plain(on_host, ls, centered, dst_sel):
     for x in (words(rng, (ls, N)), words(rng, (2, 3, ls, N)),
               words(rng, (2, ls + 3, N))[:, 2 : 2 + ls, :],  # a slice of source limbs
               words(rng, (3, 1, N)).expand(3, ls, N)):        # stride 0 on the limb dim
-        before = basis_ext.mod_up.launches
+        before = _build.launch_counts()["mod_up"]
         got = basis_ext.mod_up(x, mp, sel, centered=centered)
-        assert basis_ext.mod_up.launches == before + 1
+        assert _build.launch_counts()["mod_up"] == before + 1
         assert torch.equal(got, basis_ext.mod_up_plain(x, mp, sel, centered=centered))
 
 
@@ -137,18 +141,20 @@ class _FailingLib:
 
 @pytest.mark.parametrize("err", [700, -2])
 def test_a_failed_launch_raises(monkeypatch, err):
-    monkeypatch.setattr(basis_ext, "_takes_kernel", lambda x: True)
-    monkeypatch.setattr(basis_ext, "_library", lambda: _FailingLib(err))
-    monkeypatch.setattr(mk, "_stream", lambda device: 0)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    down_the_kernel_path(monkeypatch, _FailingLib(err))
     mp = basis_ext.ModUpParams(PRIMES[:2], PRIMES[2:4], "cpu")
-    before = basis_ext.mod_up.launches
+    before = _build.launch_counts()["mod_up"]
     with pytest.raises(RuntimeError, match="mod_up_launch"):
         basis_ext.mod_up(words(np.random.default_rng(0), (2, N)), mp)
-    assert basis_ext.mod_up.launches == before
+    assert _build.launch_counts()["mod_up"] == before
 
 
 def test_other_devices_raise():
+    """Neither the CPU nor a card (the seam's device rule: ValueError), or
+    not int64 on a card (TypeError): no plain fallback."""
     mp = basis_ext.ModUpParams(PRIMES[:2], PRIMES[2:4], "cpu")
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="one device"):
         basis_ext.mod_up(torch.zeros((2, N), dtype=torch.int64, device="meta"), mp)
+    on_a_card = SimpleNamespace(device=torch.device("cuda", 0), dtype=torch.int32)
+    with pytest.raises(TypeError, match="int64"):
+        _build.takes_kernel("mod_up", on_a_card)

@@ -9,18 +9,22 @@ on the CPU, where the kernel cannot run.  Integers: tolerance 0.
   back with ``torch.as_strided`` through the plain op, equals torch's own
   broadcasting, for every layout the call sites give (hypothesis over
   shapes), with the copies counted.
-* Routing: with the launcher faked by a recorder that runs the plain op
-  through the plan, and CPU tensors sent down the kernel path, the port's
-  ``entry`` forward at log N = 8 equals the JAX package's forward bit for
-  bit, and no ``modred.*`` or ``mod_up_plain`` call is left on that path
-  outside the NTT plain versions; the same with both kernels' sources,
-  built for the host, behind the real wrappers.
+* Routing: with CPU tensors sent down the kernel path (``_build``'s device
+  rule set aside) and a recorder behind the seam, a library whose entries
+  run the plain op on what the kernels would read (the operand table's
+  pointers and strides, ``mod_up``'s packed tables), the port's ``entry``
+  forward at log N = 8 equals the JAX package's forward bit for bit, and no
+  ``modred.*`` or ``mod_up_plain`` call is left on that path outside the
+  NTT plain versions; the same with both kernels' sources, built for the
+  host, behind the real wrappers.
 * No fallback: a call whose launcher returns an error raises.
 """
 
+import ctypes
 import re
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -36,7 +40,6 @@ from lattigo_tpu_torch.models import bfv as tbfv
 from lattigo_tpu_torch.ops import basis_ext, modred
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import number_theory as nt
-from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as tu
 from lattigo_tpu_torch.tools import host_build
 
@@ -108,12 +111,12 @@ def mod_up_host_lib():
     return host_build.load("mod_up")
 
 
-def on_host(monkeypatch, lib) -> None:
-    """CPU tensors down the kernel path, launched by the host build."""
-    monkeypatch.setattr(mk, "_takes_kernel", lambda operands: True)
-    monkeypatch.setattr(mk, "_library", lambda: lib)
-    monkeypatch.setattr(mk, "_stream", lambda device: 0)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+def on_host(monkeypatch, **libs) -> None:
+    """CPU tensors of the sources ``libs`` names down their kernel path,
+    launched by ``libs`` behind the seam."""
+    monkeypatch.setattr(_build, "takes_kernel", lambda name, *tensors: name in libs)
+    for name, lib in libs.items():
+        monkeypatch.setitem(_build.LIBRARIES, name, lib)
 
 
 @pytest.mark.parametrize("name", list(mk.OPS))
@@ -226,39 +229,66 @@ def test_launch_plan_layouts(kinds, copies):
 # -- routing: the whole forward through the kernel path -----------------------------
 
 SPEC = dict(log_n=8, t=65537, log_qi=(46, 46), log_pi=(47,), log_qi_mul=(60, 60))
-# the plain versions of other kernels, and the fakes below, may call modred
-ALLOWED = {"_ntt_simple", "_intt_simple", "ntt_mxu_plain", "ntt_passes_plain", "fake_launch",
-           "fake_mod_up_launch"}
+# the plain versions of other kernels, and the recorder below, may call modred
+ALLOWED = {"_ntt_simple", "_intt_simple", "ntt_mxu_plain", "ntt_passes_plain", "modred_launch",
+           "mod_up_launch"}
 
 
-def fake_launch(code, slots, plan, out):
-    """The recorder: the plain op through the plan, into ``out``."""
-    out.copy_(emulate(NAME_OF[code], plan).reshape(out.shape))
-    fake_launch.calls.append(NAME_OF[code])
-    return 0
+def at(ptr: int, dims, strides) -> torch.Tensor:
+    """The words a kernel reads at address ``ptr`` over ``dims`` with
+    ``strides`` (in words), copied into a tensor."""
+    extent = 1 + sum((d - 1) * s for d, s in zip(dims, strides))
+    words = np.frombuffer((ctypes.c_uint64 * extent).from_address(ptr), dtype=np.uint64)
+    view = np.lib.stride_tricks.as_strided(words, tuple(dims), tuple(8 * s for s in strides))
+    return tu.from_u64(view.copy(), "cpu")
 
 
-def fake_mod_up_launch(x, strides, mp, sel, out, centered):
-    k, n = out.shape[-2], out.shape[-1]
-    xv = torch.as_strided(x, (out.numel() // (k * n), len(mp.src), n), strides,
-                          x.storage_offset())
-    out.copy_(basis_ext.mod_up_plain(xv, mp, sel.tolist(), centered).reshape(out.shape))
-    fake_launch.calls.append("mod_up")
-    return 0
+def put(ptr: int, value: torch.Tensor) -> None:
+    """``value`` written contiguously at address ``ptr``."""
+    out = np.frombuffer((ctypes.c_uint64 * value.numel()).from_address(ptr), dtype=np.uint64)
+    out[:] = tu.to_u64(value).ravel()
 
 
-def kernel_path(monkeypatch, fake: bool = True) -> list:
-    """Send CPU tensors down both kernel paths (``fake``: with the recorder
-    as the launcher); spy on every plain modred function and on
-    ``mod_up_plain``.  Returns the list of calls made outside ALLOWED
-    frames."""
+class Recorder:
+    """A library whose entries run the plain versions on what the kernels
+    would read: the modular pass's operand table, ``mod_up``'s packed
+    tables and selection."""
+
+    def __init__(self):
+        self.calls = []
+
+    def modred_launch(self, code, desc, out, B, L, N, stream):
+        table = at(desc, (len(mk.SLOTS), 4), (4, 1))
+        _, slots, plain = mk.OPS[NAME_OF[code]]
+        ops = [at(int(table[mk.SLOTS.index(s), 0]), (B, L, N),
+                  table[mk.SLOTS.index(s), 1:].tolist()) for s in slots]
+        put(out, plain(*ops))
+        self.calls.append(NAME_OF[code])
+        return 0
+
+    def mod_up_launch(self, x, sb, sl, sn, tab, sel, out, B, N, ls, ld, k, centered, stream):
+        packed = tu.to_u64(at(tab, (5 * ls + 5 * ld + ls * ld,), (1,)))
+        src, dst, cross = np.split(packed, [5 * ls, 5 * ls + 5 * ld])
+        col = lambda row: tu.from_u64(row.reshape(-1, 1).copy(), "cpu")
+        mp = SimpleNamespace(
+            src=[0] * ls, qispj_mont_=tu.from_u64(cross.reshape(ls, ld, 1).copy(), "cpu"),
+            **dict(zip(("qib_mont_", "m_lo_", "m_hi_", "sq_", "sqinv_"),
+                       map(col, src.reshape(5, ls)))),
+            **dict(zip(("dp_", "dpinv_", "dp_u0_", "negq_mont_", "negq_plain_"),
+                       map(col, dst.reshape(5, ld)))))
+        dst_sel = np.frombuffer((ctypes.c_int32 * k).from_address(sel), dtype=np.int32).tolist()
+        put(out, basis_ext.mod_up_plain(at(x, (B, ls, N), (sb, sl, sn)), mp, dst_sel,
+                                        bool(centered)))
+        self.calls.append("mod_up")
+        return 0
+
+
+def kernel_path(monkeypatch, modred_lib, mod_up_lib) -> list:
+    """Send CPU tensors down both kernel paths, launched by the libraries
+    given; spy on every plain modred function and on ``mod_up_plain``.
+    Returns the list of calls made outside ALLOWED frames."""
     stray = []
-    fake_launch.calls = []
-    monkeypatch.setattr(basis_ext, "_takes_kernel", lambda x: True)
-    if fake:
-        monkeypatch.setattr(mk, "_takes_kernel", lambda operands: True)
-        monkeypatch.setattr(mk, "_launch", fake_launch)
-        monkeypatch.setattr(basis_ext, "_launch", fake_mod_up_launch)
+    on_host(monkeypatch, modred=modred_lib, mod_up=mod_up_lib)
 
     def spy(module, name):
         fn = getattr(module, name)
@@ -304,31 +334,31 @@ def jax_world():
 @pytest.mark.parametrize("launcher", ["recorder", "host_source"])
 def test_forward_through_the_kernel_path_equals_jax(monkeypatch, jax_world, host_lib,
                                                     mod_up_host_lib, launcher):
-    """``launcher``: the recorder (the plain op through the plan), or the
-    kernels' own sources built for the host behind the real wrappers."""
+    """``launcher``: the recorder (the plain op on what the kernels would
+    read), or the kernels' own sources built for the host behind the real
+    wrappers."""
     args, want = jax_world
     forward, _ = entry(device="cpu", params_idx=tbfv.Parameters(**SPEC).gen_from_log_moduli())
     plain = forward(*args)
-    stray = kernel_path(monkeypatch, fake=launcher == "recorder")
-    if launcher == "host_source":
-        on_host(monkeypatch, host_lib)
-        monkeypatch.setattr(basis_ext, "_library", lambda: mod_up_host_lib)
-    ring_mod.reset_launch_counts()
+    rec = Recorder()
+    stray = kernel_path(monkeypatch, *((rec, rec) if launcher == "recorder" else
+                                       (host_lib, mod_up_host_lib)))
+    _build.reset_launch_counts()
     got = forward(*args)
-    counts = ring_mod.launch_counts()
+    counts = _build.launch_counts()
     assert stray == [], stray[:10]
     for a, b, c in zip(convert.ciphertext_to_numpy(got), convert.ciphertext_to_numpy(plain), want):
         np.testing.assert_array_equal(a, c)
         np.testing.assert_array_equal(b, c)
     assert counts["modred"] > 0 and counts["mod_up"] > 0
     if launcher == "recorder":
-        assert counts["modred"] == len([c for c in fake_launch.calls if c != "mod_up"])
-        assert counts["mod_up"] == fake_launch.calls.count("mod_up")
+        assert counts["modred"] == len([c for c in rec.calls if c != "mod_up"])
+        assert counts["mod_up"] == rec.calls.count("mod_up")
 
 
 def test_spy_catches_a_stray_call(monkeypatch):
     """The routing check itself: a plain modred call on the path is seen."""
-    stray = kernel_path(monkeypatch)
+    stray = kernel_path(monkeypatch, Recorder(), Recorder())
     q = const_col("q", 1)
     modred.cred(q, q)
     assert stray and stray[0].startswith("cred from")
@@ -349,15 +379,12 @@ class _FailingLib:
 def test_a_failed_launch_raises(monkeypatch, err):
     """A call on the kernel path whose launcher reports an error raises; it
     never falls back to the plain version."""
-    monkeypatch.setattr(mk, "_takes_kernel", lambda operands: True)
-    monkeypatch.setattr(mk, "_library", lambda: _FailingLib(err))
-    monkeypatch.setattr(mk, "_stream", lambda device: 0)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
-    before = mk.modarith.launches
+    on_host(monkeypatch, modred=_FailingLib(err))
+    before = _build.launch_counts()["modred"]
     rng = np.random.default_rng(1)
     with pytest.raises(RuntimeError, match="modred_launch"):
         mk.mred(words(rng, (2, 8)), words(rng, (2, 8)), const_col("q", 2), const_col("qinv", 2))
-    assert mk.modarith.launches == before
+    assert _build.launch_counts()["modred"] == before
 
 
 def test_other_devices_raise():

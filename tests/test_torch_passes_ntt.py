@@ -16,10 +16,9 @@ from lattigo_tpu.ops import number_theory as nt
 from lattigo_tpu.ops import pallas_ntt as jpallas
 from lattigo_tpu.ops import u64 as ju
 from lattigo_tpu.ops.ring import Ring as JRing
-from lattigo_tpu_torch.ops import mxu_ntt as tmxu
+from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import pallas_ntt as tpallas
 from lattigo_tpu_torch.ops import ring as tring_mod
-from lattigo_tpu_torch.ops import tile_ntt as ttile
 from lattigo_tpu_torch.ops import u64 as tu
 from lattigo_tpu_torch.ops.ring import Ring as TRing
 
@@ -60,8 +59,9 @@ def test_plain_matches_pallas_passes_kernel(rings_1024, inverse):
     got = tpallas.ntt_passes_plain(tr, T(x), limbs, inverse)
     np.testing.assert_array_equal(tu.to_u64(got), want)
     # the wrapper takes the plain version for a CPU tensor, and launches nothing
+    before = _build.launch_counts()
     np.testing.assert_array_equal(tu.to_u64(tpallas.ntt_passes(tr, T(x), limbs, inverse)), want)
-    assert tpallas.ntt_passes.launches == 0
+    assert _build.launch_counts() == before
 
 
 # (log N, prime bits, limbs, batch): every N from 2^10 to 2^13, 39/45/55/60-bit
@@ -116,9 +116,9 @@ def test_launch_plan(log_n):
     assert (plan.chunk // plan.cluster) % plan.threads == 0  # columns per thread
     ring = TRing(n, nt.generate_ntt_primes(60, log_n, 2), device="cpu")
     x = torch.zeros((3, 2, n), dtype=torch.int64)
-    args = tpallas._launch_args(ring, x, x, (1, 0), inverse=True)
+    args = tpallas.launch_args(ring, x, x, (1, 0), inverse=True)
     assert args[6:] == (3 * 2, 2, log_n, plan.k, plan.threads, plan.smem_bytes, 1)
-    assert len(args) + 1 == len(tpallas._library_argtypes())
+    assert len(args) + 1 == len(_build.ENTRIES["ntt_passes"].argtypes)
 
 
 @pytest.mark.parametrize("log_n", [15, 16, 17])
@@ -187,14 +187,14 @@ def test_wrapper_rejects_what_it_does_not_take():
     moduli = nt.generate_ntt_primes(50, 10, 2)
     tr = TRing(1024, moduli, device="cpu")
     x = T(rand(moduli, (0, 1), (), 1024, seed=3, mult=1))
+    before = _build.launch_counts()
     with pytest.raises(ValueError):
         tpallas.ntt_passes(tr, x, (0, 1, 1))  # limb count
     with pytest.raises(ValueError):
         tpallas.ntt_passes(tr, x[..., :1, :], (2,))  # no such limb
     with pytest.raises(ValueError):
         tpallas.ntt_passes_plain(tr, x, (0, 1), k=5)  # more column stages than the kernel unrolls
-    assert tpallas.ntt_passes.launches == 0
-    assert ttile.ntt_tile.launches == 0 and tmxu.ntt_mxu.launches == 0
+    assert _build.launch_counts() == before  # no NTT kernel launched
 
 
 def test_passes_variants_apply_to_the_kernel_source():

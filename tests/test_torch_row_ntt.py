@@ -111,9 +111,9 @@ def test_launch_plan_keeps_the_card_busy(log_n):
         assert plan.rows == ttile.launch_plan(n).rows or -(-rows // (2 * plan.rows)) < 2 * 132
     ring = TRing(n, nt.generate_ntt_primes(39, log_n, 3), device="cpu")
     plan = ttile.launch_plan(n, 5 * 2)
-    ptrs, ints = ttile._launch_args(ring, (2, 0), True, 5 * 2)
+    ptrs, ints = ttile.launch_args(ring, (2, 0), True, 5 * 2)
     assert len(ptrs) == 3 and ints == (2, log_n, plan.rows, plan.threads, plan.smem_bytes, 1)
-    assert 2 + len(ptrs) + 1 + len(ints) + 1 == len(ttile._library_argtypes())
+    assert 2 + len(ptrs) + 1 + len(ints) + 1 == len(_build.ENTRIES["ntt_row"].argtypes)
 
 
 @pytest.mark.parametrize("n", [2, 128, 255, 3000, 1 << 15])
@@ -314,9 +314,10 @@ def test_row_plain_matches_tile_kernel_n256(rings_256, limbs, batch, mult, inver
     x = rand(moduli, limbs, batch, 256, seed=11 + mult, mult=mult)
     want = ju.to_u64(jax.tree.map(np.asarray, jtile.ntt_tile(
         jr, ju.from_u64(x), limbs, inverse=inverse, interpret=True)))
+    before = _build.launch_counts()
     got = ttile.ntt_tile(tr, T(x), limbs, inverse=inverse)
     np.testing.assert_array_equal(tu.to_u64(got), want)
-    assert ttile.ntt_tile.launches == 0
+    assert _build.launch_counts() == before
 
 
 def test_row_module_serves_cpu_tensors_without_nvcc(tmp_path):
@@ -331,7 +332,7 @@ def test_row_module_serves_cpu_tensors_without_nvcc(tmp_path):
         "x = torch.arange(256, dtype=torch.int64).reshape(1, 256)\n"
         "y = tile_ntt.ntt_tile(r, x, (0,))\n"
         "assert torch.equal(tile_ntt.ntt_tile(r, y, (0,), inverse=True), x)\n"
-        "assert tile_ntt.ntt_tile.launches == 0 and tile_ntt._lib is None\n"
+        "assert sum(_build.launch_counts().values()) == 0 and not _build.LIBRARIES\n"
         "try:\n    _build._nvcc()\nexcept RuntimeError:\n    print('no nvcc')\n"
     )
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from lattigo_tpu_torch import tjit as T
+from lattigo_tpu_torch import _build, tjit as T
 from lattigo_tpu_torch.models import bfv, ckks
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import ring as ring_mod
@@ -436,43 +436,41 @@ class _Lib:
 
 def _fake_modred(mp):
     """``modred_kernel``'s CUDA path on CPU tensors, with no kernel run."""
-    mp.setattr(mk, "_takes_kernel", lambda operands: True)
-    mp.setattr(mk, "_library", lambda: _Lib())
-    mp.setattr(mk, "_stream", lambda device: 0)
-    mp.setattr(torch.cuda, "current_device", lambda: None)
+    mp.setattr(_build, "takes_kernel", lambda name, *tensors: name == "modred")
+    mp.setitem(_build.LIBRARIES, "modred", _Lib())
 
 
 def test_a_kernel_launch_is_a_span_and_a_count(monkeypatch):
     """The wrapper's host side is the span ``kernel.modred``; the launch
-    counts once, in the wrapper's ``launches`` (no second counter)."""
+    counts once, in the seam's ``launch_counts`` (no second counter)."""
     _fake_modred(monkeypatch)
     a = torch.zeros(2, 8, dtype=torch.int64)
     q = torch.full((2, 1), 17, dtype=torch.int64)
-    launches = ring_mod.launch_counts()["modred"]
+    launches = _build.launch_counts()["modred"]
     with P.tracing(True):
         mk.add(a, a, q)
-    assert ring_mod.launch_counts()["modred"] == launches + 1
+    assert _build.launch_counts()["modred"] == launches + 1
     assert P.counters() == {}
     assert [r["name"] for r in P.spans()] == ["kernel.modred"]
 
 
 def test_a_graph_keeps_its_capture_launches_by_wrapper(monkeypatch):
     """A captured program keeps the launches its capture made, by wrapper,
-    and each replay counts them once more; the wrappers' own counts hold the
+    and each replay counts them once more; the seam's counts hold the
     warm-up's and the capture's launches, as before."""
     fake = _FakeCuda()
     fake.install(monkeypatch)
     _fake_modred(monkeypatch)
     q = torch.full((2, 1), 17, dtype=torch.int64)
-    launches = ring_mod.launch_counts()["modred"]
+    launches = _build.launch_counts()["modred"]
     x = torch.zeros(2, 8, dtype=torch.int64)
     prog = T._Graph(lambda a: mk.sub(mk.add(a, a, q), a, q), lambda ts: (ts[0],), [x], None)
-    assert ring_mod.launch_counts()["modred"] == launches + 4
+    assert _build.launch_counts()["modred"] == launches + 4
     assert prog.counts.captured["launches.modred"] == 2
     for _ in range(3):
         replay(prog, [x])
     assert P.counters(replayed=True)["launches.modred"] == 6
-    assert ring_mod.launch_counts()["modred"] == launches + 4
+    assert _build.launch_counts()["modred"] == launches + 4
 
 
 def test_ring_tables_are_one_span_a_build():
