@@ -7,8 +7,9 @@ Run it from the repository root on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from ``lattigo_tpu_torch/csrc`` (the three NTT
 kernels and the three modular kernels: the elementwise modular pass
-``modred.cu``, the fast basis extension ``mod_up.cu`` and the key switch's
-inner product ``key_switch.cu``), holds each kernel
+``modred.cu``, the fast basis extension ``mod_up.cu``, with the key
+switch's decomposition, and the key switch's inner product
+``key_switch.cu``), holds each kernel
 bit for bit against its plain PyTorch version at the shapes (and, for the
 modular kernels, the operand layouts) the main paths give it and at a grid
 of other shapes, times them, then drives the BFV
@@ -73,7 +74,13 @@ The ``main_path`` line also counts, from a ``torch.profiler`` trace, the
 CUDA kernels one PN12QP109 ``forward`` launches outside the NTT wrappers
 (the run fails above MAX_OTHER_KERNELS).
 
-``--phases a,b`` runs a subset (device, build, kernels, small, main_path,
+The ``decompose`` phase holds the CKKS key switch's decomposition kernel
+bit for bit against its plain version at every level of PN16QP1761, of
+PN15QP880 and of a set with alpha = 3, and times it at the benchmark's
+shapes (``[8, 34, 65536]``, ``[34, 65536]``, the Chebyshev's ``[17, 32768]``)
+in turns with the path it replaced (a ``mod_up`` a digit, ``cat``, ``stack``).
+
+``--phases a,b`` runs a subset (device, build, kernels, decompose, small, main_path,
 full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, bench, jit, and
 two that are not in the default run: ``routes``, the grid of every NTT
 kernel's device time by N and rows behind ``Ring._route``'s table, and
@@ -197,6 +204,12 @@ MODARITH_KERNELS = {
         source="lattigo_tpu_torch/csrc/key_switch.cu",
         replaces="lattigo_tpu/models/ckks/evaluator.py:340",
         note="no TPU kernel: XLA fusion under jax.jit of the key switch's fold",
+    ),
+    "decompose": dict(
+        wrapper=basis_ext.Decomposer.decompose, route="cuda",
+        source="lattigo_tpu_torch/csrc/mod_up.cu",
+        replaces="lattigo_tpu/models/ckks/evaluator.py:306",
+        note="no TPU kernel: XLA fusion under jax.jit of the CKKS key switch's decomposition",
     ),
 }
 # the profiler's kernel names (substrings) of the modular kernels
@@ -518,6 +531,9 @@ def modarith_key(rec) -> tuple:
         ring, limbs, beta, axis, index = extra
         return (name, layouts, id(ring), limbs, beta, axis,
                 None if index is None else index.data_ptr())
+    if name == "decompose":
+        dec, level = extra
+        return name, layouts, id(dec), level
     return name, layouts, tuple((c.data_ptr(), tuple(c.shape), tuple(c.stride())) for c in extra)
 
 
@@ -567,6 +583,33 @@ def key_switch_case(d, key0, key1, ring, limbs, beta, axis, index):
             lambda: key_switch.inner_product_plain(*args, **kw), n_bytes, muls)
 
 
+def decompose_case(dec, level: int, x):
+    """(kernel call, plain call, the bytes and 32-bit multiplies its bound
+    counts, the parent's path: a ``mod_up`` launch a digit, two ``cat``s and
+    the ``stack``) of the decomposition of ``x`` at ``level``.  The bytes:
+    ``x`` read once, ``d`` written once, the tables; the multiplies: each
+    digit of two or more source limbs as ``mod_up``'s, none for one limb."""
+    L, n = level + 1, x.shape[-1]
+    cols = distinct_bytes(x) // (8 * x.shape[-2])
+    beta = dec.beta_at(level)
+    n_bytes = (distinct_bytes(x) + 8 * cols * beta * (L + dec.n_p)
+               + 8 * dec.digit_table(level)[0].numel())
+    muls = 0
+    for j in range(beta):
+        ls = dec.source_range(level, j)[1]
+        if ls > 1:
+            k = L - ls + dec.n_p
+            muls += cols * (ls * 21 + k * (14 * (ls + 1) + 7 * (ls // 6 + 1)))
+            n_bytes += 8 * dec._mod_up_params(level, j, ls - 2).packed_.numel()
+
+    def plain():
+        with all_plain():
+            return dec.decompose_plain(level, x)
+
+    return (lambda: dec.decompose(level, x), plain, n_bytes, muls,
+            {"split": lambda: dec.decompose_plain(level, x)})
+
+
 def modarith_case(rec, seed: int):
     """A call like ``rec`` on fresh inputs: (kernel call, plain call, the
     bytes and 32-bit multiplies its bound counts, other calls of the same
@@ -581,6 +624,10 @@ def modarith_case(rec, seed: int):
         kernel_fn, plain_fn, fold_fn, n_bytes, muls = key_switch_case(
             d, key0, key1, ring, limbs, beta, axis, index)
         return kernel_fn, plain_fn, n_bytes, muls, {"modred_fold": fold_fn}
+    if name == "decompose":
+        dec, level = extra
+        x = strided_words(*layouts[0], gen, [0, dec.q_moduli[0] - 1, 1 << 63, (1 << 64) - 1])
+        return decompose_case(dec, level, x)
     if name == "mod_up":
         mp, sel, centered = extra
         q = mp.src[0]
@@ -644,7 +691,7 @@ def check_modarith(label: str) -> list[dict]:
         if err:
             fail(f"{label}: the modular kernel ({name}) disagrees with its plain version at "
                  f"{rec[1]}")
-        row = dict(kernel=name if name in ("mod_up", "key_switch") else "modred",
+        row = dict(kernel=name if name in ("mod_up", "key_switch", "decompose") else "modred",
                    op="inner_product" if name == "key_switch" else name,
                    layouts=[[list(sh), list(st)] for sh, st in rec[1]], max_abs_err=err,
                    calls=n_calls, measured_by=label, timed=largest[name] == key)
@@ -655,6 +702,11 @@ def check_modarith(label: str) -> list[dict]:
         if name == "key_switch":
             ring, limbs, beta, axis, index = rec[2]
             row.update(beta=beta, beta_axis=axis, limbs=list(limbs), index=index is not None)
+        if name == "decompose":
+            dec, level = rec[2]
+            row.update(level=level, beta=dec.beta_at(level), n_p=dec.n_p,
+                       digit_limbs=[dec.source_range(level, j)[1]
+                                    for j in range(dec.beta_at(level))])
         if row["timed"]:
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = muls / INT32_MULS_PER_S * 1e3
@@ -940,6 +992,67 @@ def modarith_cases(results, seed: int) -> list[dict]:
                                   bound_by="bytes" if t_bytes >= t_ops else "operations"))
         torch.cuda.empty_cache()
     return times
+
+
+# the decomposition's timed cases: (set, level, batch, N) of b8, b1 and the
+# Chebyshev's first product
+DECOMPOSE_TIMED = (("PN16QP1761", 33, (CKKS_BATCH,), 65536), ("PN16QP1761", 33, (), 65536),
+                   ("PN15QP880", 16, (), 32768))
+
+
+def decompose_cases(results: list, seed: int) -> list[dict]:
+    """The key switch's decomposition at every level of PN16QP1761, of
+    PN15QP880 and of a set with alpha = 3 and 7 Q moduli (full, partial and
+    single-limb digits) on ``[2, level + 1, 4096]``, held bit for bit
+    against its plain version; then at :data:`DECOMPOSE_TIMED`'s shapes,
+    checked, timed (``ms``, ``device_ms``; ``split_ms``,
+    ``split_device_ms``: the parent's path, a ``mod_up`` launch a digit,
+    ``cat`` and ``stack``, in turns with the kernel) beside its bound."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    small = nt.generate_ntt_primes(50, 12, 10)
+    decs = {label: basis_ext.Decomposer(p.qi, p.pi, DEV) for label, p in (
+        ("PN16QP1761", ckks.default_params(ckks.PN16QP1761)),
+        ("PN15QP880", ckks.default_params(ckks.PN15QP880)))}
+    decs["alpha3"] = basis_ext.Decomposer(small[:7], small[7:], DEV)
+
+    def words(dec, shape):
+        return strided_words(shape, dense(shape), gen,
+                             [0, dec.q_moduli[0] - 1, 1 << 63, (1 << 64) - 1])
+
+    for label, dec in decs.items():
+        for level in range(dec.n_q):
+            shape = (2, level + 1, 4096)
+            kernel_fn, plain_fn, *_ = decompose_case(dec, level, words(dec, shape))
+            results.append(dict(kernel="decompose", set=label, level=level, shape=list(shape),
+                                err=max_abs_err(kernel_fn(), plain_fn())))
+    times = []
+    for label, level, batch, n in DECOMPOSE_TIMED:
+        dec, shape = decs[label], (*batch, level + 1, n)
+        kernel_fn, plain_fn, n_bytes, muls, others = decompose_case(dec, level, words(dec, shape))
+        err = max_abs_err(kernel_fn(), plain_fn())
+        results.append(dict(kernel="decompose", set=label, level=level, shape=list(shape),
+                            err=err))
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MULS_PER_S * 1e3
+        device_ms, split_device_ms = device_turns([kernel_fn, others["split"]])
+        times.append(dict(kernel="decompose", set=label, level=level, shape=list(shape),
+                          out_shape=list(kernel_fn().shape), max_abs_err=err,
+                          ms=time_ms(kernel_fn), device_ms=device_ms,
+                          split_ms=time_ms(others["split"]), split_device_ms=split_device_ms,
+                          plain_ms=time_ms(plain_fn, reps=3), bound_ms=max(t_bytes, t_ops),
+                          bytes_ms=t_bytes, ops_ms=t_ops,
+                          bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_decompose() -> None:
+    """The key switch's decomposition kernel (``decompose_cases``)."""
+    results = []
+    times = decompose_cases(results, 300)
+    bad = [r for r in results if r["err"] != 0]
+    emit("decompose", cases=len(results), ok=not bad, failed=bad[:10], times=times)
+    if bad:
+        fail(f"{len(bad)} decomposition cases disagree with the plain version")
 
 
 def primes_below_2_61(n: int, count: int) -> list[int]:
@@ -1368,10 +1481,12 @@ def phase_ckks() -> dict:
     want_counts = {k: 0 for k in counts}
     # the key switch's fold: one key_switch launch for the 2 x 3 modred
     # launches (a product and two reductions a key half) it replaces
-    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4, modred=13, mod_up=11, key_switch=1)
+    # the decomposition: one launch for its 9 digits; mod_up: the ModDown's 2
+    want_counts.update(ntt_passes_fwd=4, ntt_passes_inv=4, modred=13, mod_up=2, key_switch=1,
+                       decompose=1)
     if counts != want_counts:
         fail(f"{label}: launch counts of one forward are {counts}, expected 4 + 4 ntt_passes, "
-             "13 modular-pass, 11 basis-extension and 1 key-switch launches")
+             "13 modular-pass, 2 basis-extension, 1 decomposition and 1 key-switch launches")
 
     ev, rot_keys = forward.evaluator, forward.rotation_keys
     rot = ev.rotate_columns(out, 1, rot_keys)
@@ -2490,7 +2605,7 @@ def main() -> None:
     global BASELINE, BASELINE_ROW
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,small,main_path,full_width,ckks,bfv15,dbfv,"
+                    default="device,build,kernels,decompose,small,main_path,full_width,ckks,bfv15,dbfv,"
                             "rotate,dckks,parallel,examples,bench,jit")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
@@ -2511,6 +2626,8 @@ def main() -> None:
         emit("baseline", source=args.baseline_row)
     if "kernels" in phases:
         phase_kernels()
+    if "decompose" in phases:
+        phase_decompose()
     if "routes" in phases:
         phase_routes()
     if "small" in phases:
@@ -2526,7 +2643,7 @@ def main() -> None:
         # kernel (Ring._route)
         if res["counts"] != {"ntt_tile_fwd": 0, "ntt_tile_inv": 0, "ntt_mxu_fwd": 0,
                              "ntt_mxu_inv": 0, "ntt_passes_fwd": 7, "ntt_passes_inv": 4,
-                             "modred": 22, "mod_up": 8, "key_switch": 1}:
+                             "modred": 22, "mod_up": 8, "key_switch": 1, "decompose": 0}:
             fail(f"launch counts of one forward are {res['counts']}, expected 11 long-row, "
                  "22 modular-pass, 8 basis-extension and 1 key-switch launches")
         if res["cuda_kernels"]["outside_ntt"] > MAX_OTHER_KERNELS:

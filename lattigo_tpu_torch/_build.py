@@ -11,8 +11,8 @@ a kernel wrapper triggers the build.
 A wrapper keeps its plain version, its argument checks, its launch plan and
 its C arguments.  The rest is here:
 
-* :data:`ENTRIES`: each source's C entry, its argument types and the name its
-  launches count under; :func:`load` types the entry once;
+* :data:`ENTRIES`: each C entry, its source, its argument types and the name
+  its launches count under; :func:`load` types a source's entries once;
 * :func:`takes_kernel`, the device rule: CPU tensors take the plain version,
   int64 tensors on one CUDA device launch, anything else raises;
 * :func:`launch`: the C entry on the current stream of the tensors' device,
@@ -42,17 +42,19 @@ BUILD = os.path.join(_HERE, "build")
 
 
 class Entry(NamedTuple):
-    """The C entry of one source: ``symbol``, the name ``kernel`` its launches
-    count under (and its wrapper's span, ``kernel.<kernel>``), whether it is
-    an NTT (counted by direction, out of ``FORCE_PLAIN``'s reach) and its
-    argument types, the stream last.  Every entry returns 0 when it launched,
-    -1 where no cluster of the plan fits the device, -2 where it does not take
-    the plan, else a CUDA error."""
+    """A C entry: ``symbol``, the name ``kernel`` its launches count under
+    (and its wrapper's span, ``kernel.<kernel>``), whether it is an NTT
+    (counted by direction, out of ``FORCE_PLAIN``'s reach), its argument
+    types, the stream last, and its ``source`` (``csrc/<source>.cu``; None:
+    the entry's own name).  Every entry returns 0 when it launched, -1 where
+    no cluster of the plan fits the device, -2 where it does not take the
+    plan, else a CUDA error."""
 
     symbol: str
     kernel: str
     ntt: bool
     argtypes: tuple
+    source: str | None = None
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -74,11 +76,24 @@ ENTRIES = {
     # B, N; L, beta
     "key_switch": Entry("key_switch_launch", "key_switch", False,
                         (_P,) * 11 + (_LL,) * 2 + (_I,) * 2 + (_P,)),
+    # the key switch's decomposition, in mod_up.cu: x and its [B, L, N]
+    # strides; the digit table, out; B, N; L, K, beta, most table words and
+    # most source limbs of a digit
+    "decompose": Entry("decompose_launch", "decompose", False,
+                       (_P,) + (_LL,) * 3 + (_P,) * 2 + (_LL,) * 2 + (_I,) * 5 + (_P,),
+                       source="mod_up"),
 }
-SOURCES = tuple(ENTRIES)
 
-# Route the modular kernels' CUDA tensors (modred, mod_up, key_switch) to
-# their plain versions: chip_smoke.py's before / after trace.
+
+def source_of(name: str) -> str:
+    """The source (``csrc/<source>.cu``) of entry ``name``."""
+    return ENTRIES[name].source or name
+
+
+SOURCES = tuple(dict.fromkeys(map(source_of, ENTRIES)))
+
+# Route the modular kernels' CUDA tensors (modred, mod_up, decompose,
+# key_switch) to their plain versions: chip_smoke.py's before / after trace.
 FORCE_PLAIN = False
 
 LIBRARIES: dict[str, ctypes.CDLL] = {}  # by source: what load() loaded, or a stand-in
@@ -144,27 +159,30 @@ def build(names=SOURCES, verbose: bool = False) -> dict[str, str]:
     return logs
 
 
-def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
-    """``lib`` with the C entry of source ``name`` typed as :data:`ENTRIES`
-    says (a build of that source, a variant or a host build of it)."""
-    fn = getattr(lib, ENTRIES[name].symbol)
-    fn.argtypes, fn.restype = ENTRIES[name].argtypes, ctypes.c_int
+def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
+    """``lib`` with every C entry of ``source`` typed as :data:`ENTRIES` says
+    (a build of that source, a variant or a host build of it)."""
+    for name, entry in ENTRIES.items():
+        if source_of(name) == source:
+            fn = getattr(lib, entry.symbol)
+            fn.argtypes, fn.restype = entry.argtypes, ctypes.c_int
     return lib
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built first if it is stale, its
-    entry typed; or the library that stands in for it in
-    :data:`LIBRARIES`."""
-    lib = LIBRARIES.get(name)
+    """The library of entry ``name``'s source, built first if it is stale,
+    its entries typed; or the library that stands in for it in
+    :data:`LIBRARIES` (keyed by source)."""
+    source = source_of(name)
+    lib = LIBRARIES.get(source)
     if lib is None:
-        build((name,))
-        lib = LIBRARIES[name] = bind(ctypes.CDLL(_paths(name)[1]), name)
+        build((source,))
+        lib = LIBRARIES[source] = bind(ctypes.CDLL(_paths(source)[1]), source)
     return lib
 
 
 def takes_kernel(name: str, *tensors: torch.Tensor) -> bool:
-    """Whether a call of source ``name``'s wrapper on ``tensors`` launches
+    """Whether a call of entry ``name``'s wrapper on ``tensors`` launches
     the kernel: all on the CPU take the plain version, int64 tensors on one
     CUDA device launch (unless ``FORCE_PLAIN`` reaches the kernel), anything
     else raises."""
@@ -183,7 +201,7 @@ def takes_kernel(name: str, *tensors: torch.Tensor) -> bool:
 
 def launch(name: str, device: torch.device, args: tuple, what, *, inverse: bool = False,
            copies: int = 0, record: tuple | None = None) -> None:
-    """Calls source ``name``'s C entry with ``args`` and the current stream of
+    """Calls C entry ``name`` with ``args`` and the current stream of
     ``device``, made the current device first where it is not; counts the
     launch (an ``inverse`` transform, ``copies`` operand copies of its plan)
     and, while :func:`record` is open, ``record``: ``(name, tensors,
@@ -215,8 +233,9 @@ def launch(name: str, device: torch.device, args: tuple, what, *, inverse: bool 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset: the NTT kernels by
     direction (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...),
-    then the modular pass (``modred``), the basis extension (``mod_up``)
-    and the key switch's inner product (``key_switch``)."""
+    then the modular pass (``modred``), the basis extension (``mod_up``),
+    the key switch's inner product (``key_switch``) and its decomposition
+    (``decompose``)."""
     out = {}
     for e in ENTRIES.values():
         launches, inverse, _ = _COUNTS[e.kernel]
@@ -229,7 +248,7 @@ def launch_counts() -> dict[str, int]:
 
 def copy_counts() -> dict[str, int]:
     """Operand copies the modular kernels' launch plans made since the last
-    reset, by kernel (``modred``, ``mod_up``, ``key_switch``)."""
+    reset, by kernel (``modred``, ``mod_up``, ``key_switch``, ``decompose``)."""
     return {e.kernel: _COUNTS[e.kernel][2] for e in ENTRIES.values() if not e.ntt}
 
 
@@ -242,11 +261,12 @@ def reset_launch_counts() -> None:
 def record():
     """Yields a list that collects ``(name, layouts, constants)`` for every
     launch of the modular kernels in the block (the calls a path gives
-    them): ``name`` the modular pass's op, ``mod_up`` or ``key_switch``;
-    ``layouts`` the operands' ``(shape, stride)``; ``constants`` the
-    modular pass's per-limb constant operands (q, qinv, u0, u1) themselves
-    (no copy: a capture may be recording), ``mod_up``'s ``(params, dst_sel,
-    centered)``, or the key switch's ``(ring, limbs, beta, beta_axis,
+    them): ``name`` the modular pass's op, ``mod_up``, ``decompose`` or
+    ``key_switch``; ``layouts`` the operands' ``(shape, stride)``;
+    ``constants`` the modular pass's per-limb constant operands (q, qinv,
+    u0, u1) themselves (no copy: a capture may be recording), ``mod_up``'s
+    ``(params, dst_sel, centered)``, ``decompose``'s ``(decomposer,
+    level)``, or the key switch's ``(ring, limbs, beta, beta_axis,
     index)``."""
     global _RECORD
     prev, _RECORD = _RECORD, []

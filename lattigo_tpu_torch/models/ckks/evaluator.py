@@ -264,13 +264,12 @@ class Evaluator:
         [..., beta, (lvl+1)+n_p, N] tensor transformed by a single batched
         NTT (decomposeAndSplitNTT, ckks/evaluator.go:1561-1591, without the
         reference's per-block skip of limbs already in the NTT domain: the
-        same values mod q, in one transform).  Returns (planes, limbs), the
-        limbs being ring_qp table indices of the stacked limb axis."""
+        same values mod q, in one transform).  The stack is written once, by
+        ``Decomposer.decompose`` (one launch on the card).  Returns (planes,
+        limbs), the limbs being ring_qp table indices of the stacked limb
+        axis."""
         dec = self.ctx.decomposer
-        planes = [torch.cat(dec.decompose_and_split(lvl, i, c2_coeff), dim=-2)
-                  for i in range(self.params.beta(lvl))]
-        d = torch.stack(planes, dim=-3)
-        del planes
+        d = dec.decompose(lvl, c2_coeff)
         limbs = tuple(range(lvl + 1)) + tuple(range(dec.n_q, dec.n_q + dec.n_p))
         return self.ctx.ring_qp.ntt_limbs(d, limbs), limbs
 

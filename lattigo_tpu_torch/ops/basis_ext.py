@@ -13,6 +13,10 @@ tensor (one thread a coefficient column; no TPU kernel: XLA fuses the JAX
 function into one device pass under ``jax.jit``); its plain version
 :func:`mod_up_plain` serves CPU tensors.  Bound on the GPU: the operations from ls = 2 on
 (``(ls (k + 1) + k)`` Montgomery products a column), else the bytes.
+:meth:`Decomposer.decompose` writes every digit of the key switch's
+decomposition into its slice of one stacked tensor with one launch of the
+same source (``decompose`` in ``_build``'s counts); its plain version
+:meth:`Decomposer.decompose_plain` stacks :meth:`Decomposer.decompose_and_split`.
 """
 
 from __future__ import annotations
@@ -243,6 +247,11 @@ class Decomposer:
         if self.n_q % self.alpha != 0:
             self.xalpha[-1] = self.n_q % self.alpha
         self._params: dict[tuple[int, int, int], ModUpParams] = {}
+        self._digits: dict[int, tuple[torch.Tensor, int, int]] = {}
+
+    def beta_at(self, level: int) -> int:
+        """The digits of the decomposition at ``level``."""
+        return -(-(level + 1) // self.alpha)
 
     def _mod_up_params(self, level: int, beta_idx: int, index: int) -> ModUpParams:
         """The conversion of block ``beta_idx``'s ``index + 2`` source limbs
@@ -302,3 +311,61 @@ class Decomposer:
             [conv_q[..., :start, :], src, conv_q[..., start:, :]], dim=-2
         )
         return x_q, x_p
+
+    def decompose(self, level: int, x: torch.Tensor) -> torch.Tensor:
+        """Every digit of ``x`` ([..., level+1, N] basis Q, coefficient
+        domain) in basis Q[0..level] + P, stacked: [..., beta_at(level),
+        level+1+n_p, N].  One launch of ``csrc/mod_up.cu``'s digit kernel for
+        a CUDA tensor; :meth:`decompose_plain` for a CPU tensor."""
+        if x.shape[-2] != level + 1:
+            raise ValueError(f"x of shape {tuple(x.shape)} is not at level {level}")
+        if not _build.takes_kernel("decompose", x):
+            return self.decompose_plain(level, x)
+        return self._decompose_kernel(level, x)
+
+    def decompose_plain(self, level: int, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`decompose` as :meth:`decompose_and_split` a digit, each
+        digit's two parts concatenated, the digits stacked."""
+        return torch.stack([torch.cat(self.decompose_and_split(level, j, x), dim=-2)
+                            for j in range(self.beta_at(level))], dim=-3)
+
+    def digit_table(self, level: int) -> tuple[torch.Tensor, int, int]:
+        """The digit kernel's table at ``level``, made once a level: 3 words
+        a digit (csrc/mod_up.cu ``DIGIT_WORDS``: its first source limb, its
+        source limb count, the address of its :class:`ModUpParams`' packed
+        tables, which this decomposer keeps; 0 for a digit of one limb); with
+        the most table words and source limbs of a digit."""
+        if level not in self._digits:
+            heads, words, most_ls = [], 0, 1
+            for j in range(self.beta_at(level)):
+                start, count = self.source_range(level, j)
+                if count == 1:
+                    heads.append((start, 1, 0))
+                    continue
+                packed = self._mod_up_params(level, j, count - 2).packed_
+                heads.append((start, count, packed.data_ptr()))
+                words, most_ls = max(words, packed.numel()), max(most_ls, count)
+            self._digits[level] = (
+                torch.tensor(heads, dtype=torch.int64, device=self.device).reshape(-1),
+                words, most_ls)
+        return self._digits[level]
+
+    @profiling.timed("kernel.decompose")
+    def _decompose_kernel(self, level: int, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`decompose`'s launch (its host side is the span
+        ``kernel.decompose``)."""
+        n, beta, rows = x.shape[-1], self.beta_at(level), level + 1 + self.n_p
+        tab, words, most_ls = self.digit_table(level)
+        if x.device != tab.device:
+            raise ValueError(f"x on {x.device}, digit tables on {tab.device}")
+        plan = mk.launch_plan((x,))
+        out = torch.empty((*x.shape[:-2], beta, rows, n), dtype=torch.int64, device=x.device)
+        if out.numel() == 0:
+            return out
+        xv, strides = plan.operands[0]
+        _build.launch("decompose", x.device, (
+            xv.data_ptr(), *strides, tab.data_ptr(), out.data_ptr(), plan.dims[0], n,
+            level + 1, self.n_p, beta, words, most_ls,
+        ), lambda: f"{beta} digits of {level + 1} limbs over {plan.dims}", copies=plan.copies,
+            record=("decompose", (x,), (self, level)))
+        return out

@@ -69,6 +69,25 @@ extern "C" int mod_up_launch(const void* x, long long sb, long long sl, long lon
                           k, centered);
     return 0;
 }
+extern "C" int decompose_launch(const void* x, long long sb, long long sl, long long sn,
+                                const void* tab, void* out, long long B, long long N, int L,
+                                int K, int beta, int words, int max_ls, void* stream) {
+    if (!x || !tab || !out || B < 1 || N < 1 || L < 1 || K < 1 || beta < 1 || words < 0 ||
+        max_ls < 1)
+        return -2;
+    const u64* t = (const u64*)tab;
+    std::vector<u64> ys(max_ls);
+    for (long long b = 0; b < B; ++b)
+        for (int j = 0; j < beta; ++j) {
+            const u64* head = t + DIGIT_WORDS * j;
+            const u64* params = (const u64*)head[2];
+            for (long long n = 0; n < N; ++n)
+                digit_column((const u64*)x + b * sb + n * sn, sl, params, ys.data(), 1,
+                             (u64*)out + ((b * beta + j) * (L + K)) * N + n, N, (int)head[0],
+                             (int)head[1], L, K);
+        }
+    return 0;
+}
 """,
     "key_switch": r"""
 #include "key_switch.cu"

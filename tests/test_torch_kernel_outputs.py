@@ -1,5 +1,5 @@
-"""The rule ``tjit``'s copy-skip relies on, for each of the six kernel
-wrappers behind ``_build``: a call returns a tensor the wrapper allocated
+"""The rule ``tjit``'s copy-skip relies on, for each of the kernel
+wrappers behind ``_build`` (one a C entry): a call returns a tensor the wrapper allocated
 (not an input, not a view of one), hands that tensor to the C entry to
 write, and leaves its inputs' contents and ``_version`` as they were.
 
@@ -80,6 +80,13 @@ def key_switch_call(rng):
             [d, key0, key1, index])
 
 
+def decompose_call(rng):
+    ring = ring_of(8, 7)
+    dec = basis_ext.Decomposer(ring.moduli[:5], ring.moduli[5:], "cpu")  # 3 digits at level 4
+    x = residues(rng, ring, (2, 5, ring.n))
+    return lambda: dec.decompose(4, x), [x]
+
+
 CALLS = {
     "ntt_row": ntt_call(tile_ntt.ntt_tile, 8),
     "ntt_passes": ntt_call(pallas_ntt.ntt_passes, 10),
@@ -87,6 +94,7 @@ CALLS = {
     "modred": modred_call,
     "mod_up": mod_up_call,
     "key_switch": key_switch_call,
+    "decompose": decompose_call,
 }
 
 
@@ -95,7 +103,7 @@ def test_a_wrapper_returns_a_tensor_of_its_own_and_leaves_its_inputs(monkeypatch
     assert set(CALLS) == set(_build.ENTRIES)
     lib = NullLib()
     monkeypatch.setattr(_build, "takes_kernel", lambda source, *tensors: True)
-    for source in _build.ENTRIES:
+    for source in _build.SOURCES:
         monkeypatch.setitem(_build.LIBRARIES, source, lib)
     call, inputs = CALLS[name](np.random.default_rng(len(name)))
     before = [(t.clone(), t._version) for t in inputs]
@@ -115,13 +123,14 @@ def test_an_eager_forward_counts_what_the_parent_counted(monkeypatch):
     library: ``launch_counts()`` has the keys and values the parent's
     counters gave (``chip_smoke.py``'s ``main_path`` on the card: 7 + 4
     long-row transforms, 22 modular passes, 8 basis extensions, 1 key
-    switch)."""
+    switch), and no launch of the CKKS decomposition: BFV keeps its own."""
     forward, args = entry(device="cpu")
     monkeypatch.setattr(_build, "takes_kernel", lambda source, *tensors: True)
-    for source in _build.ENTRIES:
+    for source in _build.SOURCES:
         monkeypatch.setitem(_build.LIBRARIES, source, NullLib())
     _build.reset_launch_counts()
     forward(*args)
     assert _build.launch_counts() == {
         "ntt_tile_fwd": 0, "ntt_tile_inv": 0, "ntt_mxu_fwd": 0, "ntt_mxu_inv": 0,
-        "ntt_passes_fwd": 7, "ntt_passes_inv": 4, "modred": 22, "mod_up": 8, "key_switch": 1}
+        "ntt_passes_fwd": 7, "ntt_passes_inv": 4, "modred": 22, "mod_up": 8, "key_switch": 1,
+        "decompose": 0}

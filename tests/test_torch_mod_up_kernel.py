@@ -11,6 +11,13 @@ tolerance 0.
   sites give (a batch, a slice of source limbs, a limb expanded with
   stride 0), inputs up to 2^64 - 1; and at the sets of the port's tests
   through ``FastBasisExtender`` and ``Decomposer``.
+* The key switch's decomposition (``Decomposer.decompose`` -> the digit
+  kernel of the same source) equals its plain version (each digit's
+  ``decompose_and_split``, concatenated, stacked) at every level of a CKKS
+  set with alpha = 3 and 7 Q moduli (full, partial and single-limb
+  digits), batches ``[]`` and ``[2]``; ``rotate_hoisted`` is the same on
+  both; one ``mul_relin`` launches it once, and BFV's relinearization
+  never (its ``mod_up`` launches stay one a digit of two or more limbs).
 * No fallback: a call whose launcher returns an error raises.
 """
 
@@ -22,6 +29,7 @@ import torch
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.models import bfv as tbfv
+from lattigo_tpu_torch.models import ckks as tckks
 from lattigo_tpu_torch.models.bfv.context import get_context
 from lattigo_tpu_torch.ops import basis_ext
 from lattigo_tpu_torch.ops import number_theory as nt
@@ -47,9 +55,10 @@ def words(rng, shape) -> torch.Tensor:
 
 
 def down_the_kernel_path(monkeypatch, lib) -> None:
-    """CPU tensors down ``mod_up``'s kernel path, launched by ``lib``
-    behind the seam."""
-    monkeypatch.setattr(_build, "takes_kernel", lambda name, *tensors: name == "mod_up")
+    """CPU tensors down the kernel paths of ``csrc/mod_up.cu``'s entries
+    (``mod_up``, ``decompose``), launched by ``lib`` behind the seam."""
+    monkeypatch.setattr(_build, "takes_kernel",
+                        lambda name, *tensors: _build.source_of(name) == "mod_up")
     monkeypatch.setitem(_build.LIBRARIES, "mod_up", lib)
 
 
@@ -126,6 +135,98 @@ def test_extender_and_decomposer_on_the_kernel(on_host):
         params = dec._mod_up_params(rq.L - 1, beta, count - 2)
         src = xq[..., start : start + count, :]
         assert torch.equal(basis_ext.mod_up(src, params), basis_ext.mod_up_plain(src, params))
+
+
+# -- the decomposition ------------------------------------------------------------------
+
+# alpha = 3, 7 Q moduli: digits of 3, 3 and 1 limbs at the top; below it
+# partial digits of 2 limbs and single-limb digits at levels 0 and 3
+CKKS_SPEC = dict(log_n=8, log_slots=7, scale=float(1 << 30), log_qi=(45,) + (30,) * 6,
+                 log_pi=(45, 45, 45))
+
+
+@pytest.fixture(scope="module")
+def ckks_world():
+    params = tckks.Parameters(**CKKS_SPEC).gen_from_log_moduli()
+    kgen = tckks.KeyGenerator(params, device="cpu", seed=3)
+    sk, pk = kgen.gen_key_pair()
+    rot = tckks.RotationKeys()
+    for k in (1, 2, 5):
+        kgen.gen_rot("left", sk, k, rot)
+    encryptor = tckks.Encryptor(params, pk=pk, device="cpu", seed=4)
+    enc = tckks.Encoder(params, device="cpu")
+    rng = np.random.default_rng(8)
+    cts = [encryptor.encrypt(enc.encode(rng.uniform(-1, 1, params.slots)
+                                        + 1j * rng.uniform(-1, 1, params.slots)))
+           for _ in range(2)]
+    return dict(params=params, rlk=kgen.gen_relin_key(sk), rot=rot, cts=cts,
+                ev=tckks.Evaluator(params, device="cpu"))
+
+
+def test_digit_kinds_of_the_set(ckks_world):
+    """The set gives every kind of digit the kernel takes."""
+    dec = tckks.Evaluator(ckks_world["params"], device="cpu").ctx.decomposer
+    counts = {level: [dec.source_range(level, j)[1] for j in range(dec.beta_at(level))]
+              for level in range(dec.n_q)}
+    assert counts == {0: [1], 1: [2], 2: [3], 3: [3, 1], 4: [3, 2], 5: [3, 3], 6: [3, 3, 1]}
+
+
+@pytest.mark.parametrize("batch", [(), (2,)])
+def test_decomposition_equals_plain(on_host, ckks_world, batch):
+    dec = ckks_world["ev"].ctx.decomposer
+    rng = np.random.default_rng(len(batch))
+    for level in range(dec.n_q):
+        x = words(rng, (*batch, level + 1, 1 << CKKS_SPEC["log_n"]))
+        before = _build.launch_counts()
+        got = dec.decompose(level, x)
+        after = _build.launch_counts()
+        assert (after["decompose"], after["mod_up"]) == (before["decompose"] + 1,
+                                                         before["mod_up"])
+        want = dec.decompose_plain(level, x)
+        assert got.shape == (*batch, dec.beta_at(level), level + 1 + dec.n_p, x.shape[-1])
+        assert torch.equal(got, want), level
+
+
+def test_rotate_hoisted_equals_plain(monkeypatch, on_host, ckks_world):
+    ev, rot = ckks_world["ev"], ckks_world["rot"]
+    ct = ckks_world["cts"][0]
+    ct = ev.drop_level(ct, 2)  # a partial digit and a single-limb one
+    got = ev.rotate_hoisted(ct, [0, 1, 2, 5], rot)
+    monkeypatch.setattr(_build, "takes_kernel", lambda name, *tensors: False)
+    want = ev.rotate_hoisted(ct, [0, 1, 2, 5], rot)
+    assert sorted(got) == sorted(want) == [0, 1, 2, 5]
+    for k in want:
+        assert all(torch.equal(a, b) for a, b in zip(got[k].value, want[k].value, strict=True))
+
+
+def test_one_decomposition_launch_a_mul_relin(on_host, ckks_world):
+    """One launch of the digit kernel for every digit of a key switch, and
+    the ModDown's two basis extensions."""
+    ev, (ca, cb) = ckks_world["ev"], ckks_world["cts"]
+    before = _build.launch_counts()
+    ev.mul_relin(ca, cb, ckks_world["rlk"])
+    after = _build.launch_counts()
+    assert after["decompose"] - before["decompose"] == 1
+    assert after["mod_up"] - before["mod_up"] == 2
+
+
+def test_bfv_relinearization_keeps_its_mod_up_launches(on_host):
+    """BFV decomposes through ``decompose_and_split``: one ``mod_up`` a
+    digit of two or more source limbs (one here: digits of 2 and 1 limbs)
+    and one each ModDown, none of the digit kernel."""
+    params = tbfv.Parameters(log_n=8, t=65537, log_qi=(46, 46, 46), log_pi=(47, 47),
+                             log_qi_mul=(60, 60, 60)).gen_from_log_moduli()
+    kgen = tbfv.KeyGenerator(params, device="cpu", seed=1)
+    sk, pk = kgen.gen_key_pair()
+    ct = tbfv.Encryptor(params, pk=pk, device="cpu", seed=2).encrypt(
+        tbfv.Encoder(params, device="cpu").encode_uint(np.arange(params.n) % params.t))
+    ev = tbfv.Evaluator(params, device="cpu")
+    ct2 = ev.mul(ct, ct)
+    before = _build.launch_counts()
+    ev.relinearize(ct2, kgen.gen_relin_key(sk))
+    after = _build.launch_counts()
+    assert after["decompose"] == before["decompose"]
+    assert after["mod_up"] - before["mod_up"] == 3
 
 
 # -- no fallback -----------------------------------------------------------------
