@@ -221,6 +221,10 @@ NTT_KERNEL_NAMES = ("ntt_row", "ntt_cluster", "rows_mm_kernel", "lanes_mm_kernel
 MAX_OTHER_KERNELS = 200  # CUDA kernels one PN12QP109 forward may launch outside the NTT
 KS_GRID_N = (4096, 16384, 65536)  # ring degrees of the key switch's grid
 KS_TIMED = (65536, 38, 9, 8)  # N, limbs, beta, batch: the PN16QP1761 x 8 fold
+# N, beta, batch: the inner sums of the dense layer at PN14QP438
+# (ckks.mul_matrix_hybrid), d the diagonals [16, 64, 10, N], the keys the
+# two halves of the baby stack [64, 10, N]
+KS_MATVEC = (16384, 64, 16)
 # 32-bit multiplies of each op of the modular pass (a 64 x 64 -> 128 product
 # is 4 for its high word and 3 for its low word), for its operation bound
 MODRED_MULS = dict(cred=0, add=0, sub=0, neg=0, mred=14, mred_constant=14, mred_add=14,
@@ -1101,10 +1105,13 @@ def key_switch_cases(results, seed: int) -> list[dict]:
     reduction) in both layouts, with the key broadcast over batches (),
     (3,) and (2, 4), with and without a Galois index, on edge and random
     words, and on words whose every product is q - 1; at N = 16384 and
-    65536 a few of them; then the PN16QP1761 x 8 shape ([8, 9, 38, 65536],
-    prefix map) timed beside the plain version, the fold of single-op
-    launches (the plain version on the modred kernel) and the bound.
-    Returns the timing rows."""
+    65536 a few of them; then, timed beside the plain version, the fold of
+    single-op launches (the plain version on the modred kernel) and the
+    bound (``key_switch_timed``), the PN16QP1761 x 8 shape ([8, 9, 38,
+    65536], prefix map) and the dense layer's inner sums (``KS_MATVEC``:
+    [16, 64, 10, 16384] over PN14QP438's moduli, 11 reductions a fold, on
+    random words and on words whose every product is q - 1).  Returns the
+    timing rows."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     small, mid, large = KS_GRID_N
     grid = [(small, beta, layout, batch, index, "random")
@@ -1130,23 +1137,41 @@ def key_switch_cases(results, seed: int) -> list[dict]:
         del d, k0, k1
     torch.cuda.empty_cache()
     n, L, beta, batch = KS_TIMED
-    ring = Ring(n, primes_below_2_61(n, L), compute_ntt_tables=False, device=DEV)
-    limbs = tuple(range(L))
-    d, k0, k1, axis = key_switch_operands(ring, limbs, beta, (batch,), "ckks", "random", gen)
-    kernel_fn, plain_fn, fold_fn, n_bytes, muls = key_switch_case(
-        d, k0, k1, ring, limbs, beta, axis, None)
-    err = max_abs_err(kernel_fn(), plain_fn())
-    results.append(dict(kernel="key_switch", n=n, beta=beta, layout="ckks", batch=[batch],
-                        index=False, fill="random", limbs=L, err=err))
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MULS_PER_S * 1e3
-    row = dict(kernel="key_switch", shape=list(d.shape), ms=time_ms(kernel_fn),
-               device_ms=device_time(kernel_fn), plain_ms=time_ms(plain_fn, reps=3),
-               modred_fold_ms=time_ms(fold_fn, reps=5), modred_fold_device_ms=device_time(fold_fn),
-               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=n_bytes, muls=muls)
-    del d, k0, k1
-    torch.cuda.empty_cache()
-    return [row]
+    rows = [key_switch_timed(results, Ring(n, primes_below_2_61(n, L), compute_ntt_tables=False,
+                                           device=DEV), beta, batch, ("random",), gen)]
+    n, beta, batch = KS_MATVEC
+    ring = Ring(n, ckks.default_params(ckks.PN14QP438).qi, compute_ntt_tables=False, device=DEV)
+    rows.append(key_switch_timed(results, ring, beta, batch, ("random", "max_products"), gen))
+    return rows
+
+
+def key_switch_timed(results, ring, beta, batch, fills, gen) -> dict:
+    """The CKKS-layout inner product over every limb of ``ring`` with
+    ``beta`` blocks and a batch of ``batch``, keys of ``beta`` blocks,
+    against its plain version on each of ``fills`` (appended to
+    ``results``); timed on the first beside the plain version, the fold of
+    single-op launches and the bound.  Returns the timing row."""
+    n, limbs = ring.n, tuple(range(ring.L))
+    for fill in fills:
+        d, k0, k1, axis = key_switch_operands(ring, limbs, beta, (batch,), "ckks", fill, gen)
+        k0, k1 = k0[:beta], k1[:beta]
+        kernel_fn, plain_fn, fold_fn, n_bytes, muls = key_switch_case(
+            d, k0, k1, ring, limbs, beta, axis, None)
+        results.append(dict(kernel="key_switch", n=n, beta=beta, layout="ckks", batch=[batch],
+                            index=False, fill=fill, limbs=ring.L,
+                            err=max_abs_err(kernel_fn(), plain_fn())))
+        if fill == fills[0]:
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, muls / INT32_MULS_PER_S * 1e3
+            row = dict(kernel="key_switch", shape=list(d.shape), ms=time_ms(kernel_fn),
+                       device_ms=device_time(kernel_fn), plain_ms=time_ms(plain_fn, reps=3),
+                       modred_fold_ms=time_ms(fold_fn, reps=5),
+                       modred_fold_device_ms=device_time(fold_fn),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=n_bytes, muls=muls)
+        del d, k0, k1, kernel_fn, plain_fn, fold_fn
+        torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernels() -> None:

@@ -5,9 +5,11 @@ The slice ported so far: parameters, context, encoder, key generation
 conjugation keys), encryption, decryption, and every method of the
 evaluator (linear and constant ops, rescaling, multiplication with
 relinearization, key switching, rotations, conjugation, hoisted
-rotations), baby-step/giant-step and Chebyshev polynomial evaluation, and
-the algorithms (powers, Goldschmidt inverse), and ``JitEvaluator``, every
-op a ``tjit`` program (on CUDA a captured graph).
+rotations), baby-step/giant-step and Chebyshev polynomial evaluation,
+encrypted matrix-vector products (the hybrid diagonal method with hoisted
+baby steps, ``linear_transform``), the algorithms (powers, Goldschmidt
+inverse), and ``JitEvaluator``, every op a ``tjit`` program (on CUDA a
+captured graph).
 """
 
 from lattigo_tpu_torch.models.ckks import algorithms
@@ -18,6 +20,11 @@ from lattigo_tpu_torch.models.ckks.encoder import Encoder
 from lattigo_tpu_torch.models.ckks.encryptor import Decryptor, Encryptor
 from lattigo_tpu_torch.models.ckks.evaluator import Evaluator, JitEvaluator
 from lattigo_tpu_torch.models.ckks.keygen import EvaluationKey, KeyGenerator, RotationKeys
+from lattigo_tpu_torch.models.ckks.linear_transform import (
+    Diagonals,
+    encode_diagonals,
+    mul_matrix_hybrid,
+)
 from lattigo_tpu_torch.models.ckks.params import (
     PN12QP109,
     PN13QP218,
@@ -37,10 +44,11 @@ from lattigo_tpu_torch.models.ckks.polynomial_evaluation import (
 )
 
 __all__ = [
-    "CKKSContext", "ChebyshevInterpolation", "Ciphertext", "Decryptor", "Encoder", "Encryptor",
+    "CKKSContext", "ChebyshevInterpolation", "Ciphertext", "Decryptor", "Diagonals", "Encoder",
+    "Encryptor",
     "EvaluationKey", "Evaluator", "JitEvaluator", "KeyGenerator", "Parameters", "Plaintext",
     "PublicKey", "RotationKeys", "SecretKey", "SwitchingKey", "default_params",
     "get_context", "PN12QP109", "PN13QP218", "PN14QP438", "PN15QP880", "PN16QP1761",
     "algorithms", "approximate", "evaluate_cheby_eco", "evaluate_cheby_fast",
-    "evaluate_poly_eco", "evaluate_poly_fast",
+    "encode_diagonals", "evaluate_poly_eco", "evaluate_poly_fast", "mul_matrix_hybrid",
 ]

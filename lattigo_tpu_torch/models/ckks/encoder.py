@@ -14,6 +14,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from lattigo_tpu_torch.models.ckks.context import GALOIS_GEN, get_context
 from lattigo_tpu_torch.models.ckks.elements import Plaintext
@@ -36,14 +37,15 @@ def _fft_tables(m: int):
 
 
 def _bit_reverse_vec(values: np.ndarray) -> np.ndarray:
-    n = len(values)
-    return values[bit_reverse_array(np.arange(n), n.bit_length() - 1)]
+    n = values.shape[-1]
+    return values[..., bit_reverse_array(np.arange(n), n.bit_length() - 1)]
 
 
 def special_invfft(values: np.ndarray, m: int) -> np.ndarray:
-    """Inverse special FFT over the rotGroup orbit (ckks/encoder.go:170-201)."""
-    values = values.copy()
-    n = len(values)
+    """Inverse special FFT over the rotGroup orbit (ckks/encoder.go:170-201),
+    of each vector along the last axis."""
+    values = np.ascontiguousarray(values).copy()
+    n = values.shape[-1]
     rot_group, roots = _fft_tables(m)
     length = n
     while length >= 2:  # the reference's len==1 iteration is a no-op
@@ -52,11 +54,11 @@ def special_invfft(values: np.ndarray, m: int) -> np.ndarray:
         gap = m // lenq
         idx = ((lenq - (rot_group[:lenh] % lenq)) * gap).astype(np.int64)
         w = roots[idx]
-        v2 = values.reshape(-1, length)
-        uu = v2[:, :lenh] + v2[:, lenh:]
-        vv = (v2[:, :lenh] - v2[:, lenh:]) * w[None, :]
-        v2[:, :lenh] = uu
-        v2[:, lenh:] = vv
+        v2 = values.reshape(*values.shape[:-1], -1, length)
+        uu = v2[..., :lenh] + v2[..., lenh:]
+        vv = (v2[..., :lenh] - v2[..., lenh:]) * w
+        v2[..., :lenh] = uu
+        v2[..., lenh:] = vv
         length >>= 1
     values = _bit_reverse_vec(values)
     return values / n
@@ -83,18 +85,28 @@ def special_fft(values: np.ndarray, m: int) -> np.ndarray:
     return values
 
 
-def scale_up_vec_exact(values: np.ndarray, scale: float, moduli: list[int]) -> np.ndarray:
-    """Exact round(scale*v) residues per modulus (ckks/utils.go:51-96): the
-    float products and roundings are the JAX package's, the residues come
-    from one big-int ufunc loop per modulus."""
+def scale_up_vec_exact(values: np.ndarray, scale: float, moduli: list[int],
+                       device) -> torch.Tensor:
+    """Exact round(scale*v) residues per modulus (ckks/utils.go:51-96) of
+    each vector along the last axis, as an int64 tensor [..., len(moduli),
+    n] on ``device``: the float products and roundings are the JAX
+    package's; the rounded words are int64 where they fit (below 2^63),
+    reduced on ``device`` by one broadcast remainder, and Python integers
+    where they do not, with one big-int ufunc loop per modulus."""
     x = float(scale) * np.asarray(values, dtype=np.float64)
+    a = np.abs(x) + 0.5
     neg = x < 0
-    c = np.array([int(v) for v in (np.abs(x) + 0.5).tolist()], dtype=object)
-    out = np.empty((len(moduli), len(x)), dtype=np.uint64)
+    if not a.size or a.max() < 2.0**63:
+        c = a.astype(np.int64)  # truncates, as int() does
+        c = torch.from_numpy(np.where(neg, -c, c)).to(device)
+        q = torch.tensor(list(moduli), dtype=torch.int64, device=device)[:, None]
+        return c[..., None, :] % q  # % takes q's sign
+    c = np.array([int(v) for v in a.ravel().tolist()], dtype=object).reshape(a.shape)
+    out = np.empty((*x.shape[:-1], len(moduli), x.shape[-1]), dtype=np.uint64)
     for j, q in enumerate(moduli):
         r = c % q
-        out[j] = np.where(neg, (q - r) % q, r).astype(np.uint64)
-    return out
+        out[..., j, :] = np.where(neg, (q - r) % q, r).astype(np.uint64)
+    return u.from_u64(out, device)
 
 
 class Encoder:
@@ -105,25 +117,27 @@ class Encoder:
 
     def encode(self, values, slots: int | None = None, level: int | None = None,
                scale: float | None = None) -> Plaintext:
-        """ckks/encoder.go:78-116."""
+        """ckks/encoder.go:78-116.  ``values`` with leading dims encode to a
+        plaintext [..., L, N], one vector each."""
         ctx = self.ctx
         slots = slots if slots is not None else self.params.slots
         level = level if level is not None else self.params.max_level
         scale = scale if scale is not None else self.params.scale
         values = np.asarray(values, dtype=np.complex128)
-        if len(values) > slots or slots > ctx.max_slots:
+        batch = values.shape[:-1]
+        if values.shape[-1] > slots or slots > ctx.max_slots:
             raise ValueError("too many values for the given number of slots")
-        buf = np.zeros(slots, dtype=np.complex128)
-        buf[: len(values)] = values
+        buf = np.zeros((*batch, slots), dtype=np.complex128)
+        buf[..., : values.shape[-1]] = values
         buf = special_invfft(buf, self.m)
 
         gap = ctx.max_slots // slots
-        coeffs = np.zeros(ctx.n, dtype=np.float64)
-        coeffs[0 : gap * slots : gap] = buf.real
-        coeffs[ctx.max_slots :: gap][:slots] = buf.imag
+        coeffs = np.zeros((*batch, ctx.n), dtype=np.float64)
+        coeffs[..., 0 : gap * slots : gap] = buf.real
+        coeffs[..., ctx.max_slots :: gap][..., :slots] = buf.imag
 
-        residues = scale_up_vec_exact(coeffs, scale, ctx.ring_q.moduli[: level + 1])
-        return Plaintext(ctx.ring_q.ntt(u.from_u64(residues, ctx.device)), scale)
+        residues = scale_up_vec_exact(coeffs, scale, ctx.ring_q.moduli[: level + 1], ctx.device)
+        return Plaintext(ctx.ring_q.ntt(residues), scale)
 
     def decode(self, pt: Plaintext, slots: int | None = None) -> np.ndarray:
         """ckks/encoder.go:119-168.  A plaintext with leading dims decodes to

@@ -5,7 +5,8 @@ tolerance 0.
 * The kernel's own source, built with the host C++ compiler by
   ``tools/host_build`` behind the real wrapper, equals the plain version
   :func:`inner_product_plain` for beta = 1, 2, 6, 7, 8, 9 (across the
-  7-product reduction) with moduli just below 2^61, in both layouts (BFV
+  7-product reduction) and 64 (the dense layer's inner sums, 11
+  reductions a fold) with moduli just below 2^61, in both layouts (BFV
   ``[beta, B, L, N]``, CKKS ``[B, beta, L, N]``), with a non-prefix limb
   map (ring table and key rows), the key broadcast over B = 1, 3 and 8, with and without a
   Galois index: on random 64-bit words with the edge words 0, 1, q - 1,
@@ -139,13 +140,13 @@ def check(monkeypatch, lib, layout, beta, b, index, fill, seed) -> None:
 @pytest.mark.parametrize("index", [False, True])
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("layout", ["bfv", "ckks"])
-@pytest.mark.parametrize("beta", [1, 2, 6, 7, 8, 9])
+@pytest.mark.parametrize("beta", [1, 2, 6, 7, 8, 9, 64])
 def test_source_equals_plain(monkeypatch, host_lib, beta, layout, b, index):
     check(monkeypatch, host_lib, layout, beta, b, index, "random", seed=beta * 100 + b)
 
 
 @pytest.mark.parametrize("layout", ["bfv", "ckks"])
-@pytest.mark.parametrize("beta", [1, 2, 6, 7, 8, 9])
+@pytest.mark.parametrize("beta", [1, 2, 6, 7, 8, 9, 64])
 def test_source_equals_plain_on_largest_products(monkeypatch, host_lib, beta, layout):
     check(monkeypatch, host_lib, layout, beta, 3, False, "max_products", seed=beta)
 

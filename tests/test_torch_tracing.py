@@ -7,7 +7,9 @@ the rows ``ring.record_transforms`` lists; nothing is recorded on the
 device inside a capture; a profiler session traces and keeps its calls out
 of the aggregates; the kernel wrappers' spans; a captured program's
 kernel launches by wrapper; a program's outputs are freed without the
-garbage collector."""
+garbage collector; the CKKS cells' captures count no rotation, and a
+captured linear layer counts its rotations, decompositions and plaintext
+products once a replay."""
 
 import contextlib
 import dataclasses
@@ -589,3 +591,64 @@ def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
     assert prog.counts.captured == {"ntt.rows.tile": 29, "launches.modred": 17, "tjit.replays": 1}
     replay(prog, [t.clone() for t in dyn])
     assert P.counters(replayed=True)["tjit.copy_in_bytes"] == 2 * ct.value[0].numel() * 8
+
+
+LINEAR = ("ckks.rotations", "ckks.decompositions", "ckks.linear.pt_products")
+
+
+def _captured(fn, args):
+    """``fn``'s program on ``args`` (the capture API faked)."""
+    leaves, treedef = T.tree_flatten(args)
+    dyn = [l for l in leaves if isinstance(l, torch.Tensor)]
+    statics = [l for l in leaves if not isinstance(l, torch.Tensor)]
+
+    def rebuild(tensors):
+        it, st = iter(tensors), iter(statics)
+        return T.tree_unflatten(treedef, [next(it) if isinstance(l, torch.Tensor) else next(st)
+                                          for l in leaves])
+
+    return T._Graph(fn, rebuild, dyn, None), dyn
+
+
+@pytest.mark.parametrize("cell", ["mulrelin", "cheby31"])
+def test_the_ckks_cells_captures_count_no_rotation(monkeypatch, ckks_world, cell):
+    """The captures of the CKKS cells' programs, ``rescale(mul_relin)`` and
+    the degree-31 Chebyshev, hold none of the linear layer's counters, nor
+    do the counters after a replay."""
+    _FakeCuda().install(monkeypatch)
+    w = ckks_world
+    ev = w["ev"]
+    if cell == "mulrelin":
+        fn = lambda ct, rlk: ev.rescale(ev.mul_relin(ct, ct, rlk))
+    else:
+        fn = lambda ct, rlk: ckks.evaluate_cheby_fast(ev, ct, w["cheby"], rlk)
+    prog, dyn = _captured(fn, (w["ct"], w["rlk"]))
+    replay(prog, dyn)
+    assert prog.counts.captured["ntt.rows.tile"] > 0
+    assert not set(LINEAR) & (set(prog.counts.captured) | set(P.counters()))
+
+
+def test_a_captured_linear_layer_counts_its_rotations_a_replay(monkeypatch, ckks_world):
+    """An 8 x 128 layer (4 baby x 2 giant steps, 4 fold steps) as one
+    captured program: the capture's 3 + 1 + 4 rotations, 1 + 1 + 4
+    decompositions and 8 products are the program's, counted once a
+    replay."""
+    _FakeCuda().install(monkeypatch)
+    w = ckks_world
+    params, ev = w["params"], w["ev"]
+    kg = ckks.KeyGenerator(params, device="cpu", seed=7)
+    sk = kg.gen_secret_key()
+    keys = ckks.RotationKeys()
+    for steps in ckks.linear_transform.rotations(8, 4, params.slots):
+        for k in steps:
+            kg.gen_rot("left", sk, k, keys)
+    weights = np.random.default_rng(8).uniform(-0.1, 0.1, (8, params.slots))
+    diags = ckks.encode_diagonals(params, weights, 4, device="cpu")
+    prog, dyn = _captured(lambda ct, rk: ckks.mul_matrix_hybrid(ev, ct, diags, rk),
+                          (w["ct"], keys))
+    want = {"ckks.rotations": 8, "ckks.decompositions": 6, "ckks.linear.pt_products": 8}
+    assert {k: prog.counts.captured[k] for k in LINEAR} == want
+    assert {k: P.counters()[k] for k in LINEAR} == want  # the warm-up's
+    replay(prog, dyn)
+    replay(prog, dyn)
+    assert {k: P.counters(replayed=True)[k] for k in LINEAR} == {k: 2 * v for k, v in want.items()}
