@@ -17,6 +17,7 @@ does; at PN16QP1761 with 8 stacked ciphertexts that is 72 rows of 38 limbs.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -30,8 +31,30 @@ from lattigo_tpu_torch.tjit import GraphPool, tjit
 from lattigo_tpu_torch.utils import profiling
 
 
+# Rows a stacked ModDown of hoisted rotations gives its forward NTT.  On the
+# H100 grid of PERF.md §6 ("Routing grid") the long-row kernel at N = 16384
+# takes the same time for 64 rows as for 2, and from 256 rows on 0.25-0.30 us
+# a row: a smaller chunk pays the launch again, a larger one only holds more
+# rotations' Q + P products in memory at once.
+HOISTED_MOD_DOWN_ROWS = 256
+
+
 def _hamming(x: int) -> int:
     return bin(x).count("1")
+
+
+def _chunks(ks: list[int], size: int) -> list[tuple[int, int]]:
+    """The [start, stop) runs of consecutive nonzero rotations in ``ks``,
+    each at most ``size`` long."""
+    runs: list[tuple[int, int]] = []
+    for i, k in enumerate(ks):
+        if not k:
+            continue
+        if runs and runs[-1][1] == i and i - runs[-1][0] < size:
+            runs[-1] = (runs[-1][0], i + 1)
+        else:
+            runs.append((i, i + 1))
+    return runs
 
 
 def _scale_up_exact(value: float, n: float, q: int) -> int:
@@ -325,27 +348,60 @@ class Evaluator:
         return self._permute(ct, self.ctx.gal_el_conjugate, rot_keys.conjugate)
 
     def rotate_hoisted(self, ct: Ciphertext, rotations, rot_keys) -> dict[int, Ciphertext]:
-        """Decompose c1 once, then per rotation only permute + inner product
-        (ckks/evaluator.go:1252-1392)."""
+        """:meth:`rotate_hoisted_stack` by rotation (``k mod N/2``), each
+        ciphertext a view of the stack."""
+        st = self.rotate_hoisted_stack(ct, rotations, rot_keys)
+        half = (self.ctx.n >> 1) - 1
+        return {k & half: Ciphertext([st[0, i], st[1, i]], ct.scale)
+                for i, k in enumerate(rotations)}
+
+    def rotate_hoisted_stack(self, ct: Ciphertext, rotations, rot_keys) -> torch.Tensor:
+        """The left rotation ``rotations[r]`` of ``ct`` at ``[:, r]`` of one
+        [2, R, ..., lvl+1, N] stack: c1 decomposed once, then per rotation
+        only its inner product, which reads the decomposition through the
+        permutation (ckks/evaluator.go:1252-1392).  The rest of each
+        rotation (the ModDown of both key halves, the permuted c0 and the
+        add) runs once over a chunk of consecutive rotations, as many as
+        give the forward ModDown NTT ``HOISTED_MOD_DOWN_ROWS`` rows; the
+        same modular operations on the same rows as one rotation at a time.
+        Rotation 0 is a copy.
+
+        Recorder, counted in Python (a captured program counts its
+        capture's once a replay): ``ckks.hoisted.mod_downs``, one a chunk,
+        and ``ckks.hoisted.rotations``, the rotations in them."""
         ctx = self.ctx
         rq = ctx.ring_q
         lvl = ct.level
+        ks = [k & ((ctx.n >> 1) - 1) for k in rotations]
+        missing = sorted({k for k in ks if k and k not in rot_keys.left})
+        if missing:
+            raise ValueError(f"missing rotation keys {missing}")
+        c0, c1 = ct.value[0], ct.value[1]
+        shape = torch.broadcast_shapes(c0.shape, c1.shape)
+        out = torch.empty((2, len(ks), *shape), dtype=c1.dtype, device=c1.device)
+        for i, k in enumerate(ks):
+            if not k:
+                out[0, i], out[1, i] = c0, c1
+        chunks = _chunks(ks, -(-HOISTED_MOD_DOWN_ROWS // (2 * math.prod(shape[:-1]))))
+        if not chunks:
+            return out
         beta = self.params.beta(lvl)
-        d, limbs = self._decompose_stacked(lvl, rq.intt(ct.value[1]))
-        out: dict[int, Ciphertext] = {}
-        for k in rotations:
-            k &= (ctx.n >> 1) - 1
-            if k == 0:
-                out[k] = ct.copy()
-                continue
-            if k not in rot_keys.left:
-                raise ValueError(f"missing rotation key {k}")
-            gal_el = ctx.gal_el_rot_col_left[k]
-            swk = rot_keys.left[k]  # d read through the permutation, not permuted
-            a = key_switch.inner_product(d, swk.key0, swk.key1, ctx.ring_qp, limbs, beta,
-                                         index=galois.ntt_index(gal_el, ctx.n, d.device))
-            c0 = rq.add(galois.permute_ntt(ct.value[0], gal_el), self._mod_down(lvl, a[0]))
-            out[k] = Ciphertext([c0, self._mod_down(lvl, a[1])], ct.scale)
+        d, limbs = self._decompose_stacked(lvl, rq.intt(c1))
+        for start, stop in chunks:
+            gal_els = [ctx.gal_el_rot_col_left[k] for k in ks[start:stop]]
+            a = torch.empty((stop - start, 2, *d.shape[:-3], *d.shape[-2:]), dtype=d.dtype,
+                            device=d.device)
+            for j, (k, gal_el) in enumerate(zip(ks[start:stop], gal_els)):
+                swk = rot_keys.left[k]  # d read through the permutation, not permuted
+                key_switch.inner_product(d, swk.key0, swk.key1, ctx.ring_qp, limbs, beta,
+                                         index=galois.ntt_index(gal_el, ctx.n, d.device),
+                                         out=a[j])
+            down = self._mod_down(lvl, a)
+            del a
+            out[0, start:stop] = rq.add(galois.permute_ntt_stack(c0, gal_els), down[:, 0])
+            out[1, start:stop] = down[:, 1]
+            profiling.count("ckks.hoisted.mod_downs")
+            profiling.count("ckks.hoisted.rotations", stop - start)
         return out
 
 

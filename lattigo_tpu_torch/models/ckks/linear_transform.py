@@ -17,10 +17,11 @@ With k = n1 j + i (i < n1 baby steps, j < n2 = m / n1 giant steps),
 
     z = sum_j rot_(n1 j)( sum_i rot_(-n1 j)(diag_(n1 j + i)) * rot_i(x) ),
 
-so the n1 - 1 baby rotations share one decomposition
-(``Evaluator.rotate_hoisted``), each giant rotation and each fold step is
-one ``rotate_columns``, and the diagonals are rotated right by n1 j once,
-when they are encoded (:func:`encode_diagonals`).
+so the n1 - 1 baby rotations share one decomposition and run their ModDowns
+a chunk of rotations at a time (``Evaluator.rotate_hoisted_stack``, whose
+stack of both halves the inner sums read as it is), each giant rotation and
+each fold step is one ``rotate_columns``, and the diagonals are rotated
+right by n1 j once, when they are encoded (:func:`encode_diagonals`).
 
 The inner sums are one launch of the key switch's fold
 (``ops/key_switch.inner_product``, ``csrc/key_switch.cu``): the baby stack
@@ -37,7 +38,8 @@ so that a captured program counts its capture's once a replay:
 ``ckks.decompositions`` (one a decomposition of c1 the layer issues) and
 ``ckks.linear.pt_products`` (one a diagonal times a ciphertext); the spans
 ``ckks.linear.baby``, ``ckks.linear.inner``, ``ckks.linear.giant`` and
-``ckks.linear.fold``.
+``ckks.linear.fold``.  The evaluator counts the baby steps' chunks itself
+(``ckks.hoisted.mod_downs``, ``ckks.hoisted.rotations``).
 """
 
 from __future__ import annotations
@@ -129,9 +131,7 @@ def mul_matrix_hybrid(ev, ct: Ciphertext, diags: Diagonals, rot_keys) -> Ciphert
 
     with profiling.span("ckks.linear.baby"):
         _rotated(len(baby))
-        rot = ev.rotate_hoisted(ct, [0] + baby, rot_keys)
-        halves = [torch.stack([rot[i].value[h] for i in range(n1)]) for h in (0, 1)]
-        del rot
+        halves = ev.rotate_hoisted_stack(ct, [0] + baby, rot_keys)
     with profiling.span("ckks.linear.inner"):
         profiling.count("ckks.linear.pt_products", n1 * n2)
         inner = key_switch.inner_product(diags.value[..., : lvl + 1, :], halves[0], halves[1],

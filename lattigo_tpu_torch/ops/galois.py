@@ -82,6 +82,19 @@ def permute_ntt(x: torch.Tensor, gal_el: int) -> torch.Tensor:
     return torch.index_select(x, -1, ntt_index(gal_el, x.shape[-1], x.device))
 
 
+def permute_ntt_stack(x: torch.Tensor, gal_els) -> torch.Tensor:
+    """:func:`permute_ntt` of ``x`` [..., L, N] under each of ``gal_els``,
+    stacked [len(gal_els), ..., L, N], in one gather; the stacked
+    :func:`ntt_index` vectors are cached as they are."""
+    n, device = x.shape[-1], x.device
+    key = ("ntt_stack", tuple(gal_els), n, str(device))
+    if key not in _device_tables:
+        _device_tables[key] = torch.stack([ntt_index(g, n, device) for g in gal_els])
+    full = (len(gal_els), *x.shape)
+    index = _device_tables[key].view(len(gal_els), *(1,) * (x.ndim - 1), n)
+    return torch.gather(x.expand(full), -1, index.expand(full))
+
+
 def permute(ring, x: torch.Tensor, gal_el: int) -> torch.Tensor:
     """Coefficient-domain automorphism with a sign flip on wrap-around."""
     src, flip = _on_device("coeff", gal_el, ring.n, x.device)

@@ -18,7 +18,9 @@ copied).
 ``index`` is an NTT-domain permutation of the coefficients
 (``galois.ntt_index``): the blocks are read through it instead of being
 permuted first.  The result is one new ``[2, ..., L, N]`` tensor, the two
-key halves.
+key halves, or ``out``, a contiguous tensor of that shape, written in place
+with its version counter bumped, as an in-place op's is (``tjit``'s
+copy-skip reads it).
 
 Bound on the GPU: the bytes (``d`` read once, both key halves and the map
 once, both outputs written once).  Which calls launch, and the launch
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.ops import modred_kernel as mk
@@ -87,18 +90,19 @@ def d_plan(d: T, beta_axis: int) -> tuple[T, tuple[int, int, int, int], tuple[in
 
 
 def inner_product(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T | None = None,
-                  beta_axis: int = -3) -> T:
+                  beta_axis: int = -3, out: T | None = None) -> T:
     """:func:`inner_product_plain` as one launch of ``csrc/key_switch.cu``
     for CUDA tensors; the plain version for CPU tensors."""
     operands = (d, key0, key1, ring.q_) + (() if index is None else (index,))
     if not _build.takes_kernel("key_switch", *operands):
-        return inner_product_plain(d, key0, key1, ring, limbs, beta, index, beta_axis)
-    return _inner_product_kernel(d, key0, key1, ring, limbs, beta, index, beta_axis)
+        got = inner_product_plain(d, key0, key1, ring, limbs, beta, index, beta_axis)
+        return got if out is None else out.copy_(got)
+    return _inner_product_kernel(d, key0, key1, ring, limbs, beta, index, beta_axis, out)
 
 
 @profiling.timed("kernel.key_switch")
 def _inner_product_kernel(d: T, key0: T, key1: T, ring, limbs, beta: int, index: T | None,
-                          beta_axis: int) -> T:
+                          beta_axis: int, out: T | None = None) -> T:
     """:func:`inner_product`'s launch (its host side is the span
     ``kernel.key_switch``)."""
     limbs = tuple(limbs)
@@ -118,7 +122,13 @@ def _inner_product_kernel(d: T, key0: T, key1: T, ring, limbs, beta: int, index:
     if key0.stride() != key1.stride():
         key0, key1 = key0.contiguous(), key1.contiguous()
         copies += 2
-    out = torch.empty((2, *batch, len(limbs), n), dtype=torch.int64, device=d.device)
+    shape = (2, *batch, len(limbs), n)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int64, device=d.device)
+    elif out.shape != shape or out.dtype != torch.int64 or out.device != d.device \
+            or not out.is_contiguous():
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} is no contiguous "
+                         f"int64 {shape} on {d.device}")
     if out.numel() == 0:
         return out
     dstr, kstr = np.array(dstr, dtype=np.int64), np.array(key0.stride(), dtype=np.int64)
@@ -130,4 +140,5 @@ def _inner_product_kernel(d: T, key0: T, key1: T, ring, limbs, beta: int, index:
         out.numel() // (2 * len(limbs) * n), n, len(limbs), beta,
     ), lambda: f"d {tuple(d.shape)} with {beta} blocks", copies=copies,
         record=("key_switch", (d, key0, key1), (ring, limbs, beta, beta_axis, index)))
+    increment_version(out)
     return out

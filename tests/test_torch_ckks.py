@@ -25,6 +25,7 @@ from lattigo_tpu_torch.ops import ring as tring_mod
 from lattigo_tpu_torch.ops import samplers
 from lattigo_tpu_torch.ops import scaling as tscaling
 from lattigo_tpu_torch.ops import u64 as tu
+from lattigo_tpu_torch.utils import profiling
 from lattigo_tpu_torch.utils.precision import precision_stats
 
 torch.set_num_threads(1)
@@ -353,13 +354,46 @@ def test_conjugate_equal_and_decrypts(world):
     assert median_bits(roundtrip(t, tct), np.conj(world["va"])) >= MIN_PREC
 
 
-def test_rotate_hoisted_equal(world):
+@pytest.fixture(scope="module")
+def eight_rotations(world):
+    """Left keys 1..7 in both packages (the world's 1 and 2, and 3..7 made
+    here) and the JAX package's ``rotate_hoisted`` of ``ca`` by 0..7."""
     t, j = world["t"], world["j"]
-    tout = t["ev"].rotate_hoisted(t["ca"], [0, 1, 2], t["rot"])
-    jout = j["ev"].rotate_hoisted(j["ca"], [0, 1, 2], j["rot"])
-    assert sorted(tout) == sorted(jout) == [0, 1, 2]
+    rot = tckks.RotationKeys(left=dict(t["rot"].left))
+    kgen = tckks.KeyGenerator(TP, device="cpu", seed=3)
+    for k in range(3, 8):
+        kgen.gen_rot("left", t["sk"], k, rot)
+    left, _, _ = convert.rotation_keys_to_numpy(rot)
+    jrot = jckks.RotationKeys({r: jckks.SwitchingKey(ju.from_u64(k0), ju.from_u64(k1))
+                               for r, (k0, k1) in left.items()}, {}, None)
+    return rot, j["ev"].rotate_hoisted(j["ca"], list(range(8)), jrot)
+
+
+@pytest.mark.parametrize("rotations,rows,chunks", [
+    ([0, 1, 2], None, 1),
+    (list(range(8)), 24, 3),  # 8 rows a rotation: 3 rotations a ModDown
+    (list(range(8)), None, 1),
+], ids=["0-2", "0-7_three_chunks", "0-7_one_chunk"])
+def test_rotate_hoisted_equal(world, request, monkeypatch, rotations, rows, chunks):
+    """Bit for bit against the JAX package's ``rotate_hoisted``, however
+    many stacked ModDowns the rotations take."""
+    t, j = world["t"], world["j"]
+    if len(rotations) == 3:
+        rot = t["rot"]
+        jout = j["ev"].rotate_hoisted(j["ca"], rotations, j["rot"])
+    else:
+        rot, jout = request.getfixturevalue("eight_rotations")
+    if rows is not None:
+        monkeypatch.setattr(tckks.evaluator, "HOISTED_MOD_DOWN_ROWS", rows)
+    before = profiling.counters()
+    tout = t["ev"].rotate_hoisted(t["ca"], rotations, rot)
+    after = profiling.counters()
+    assert sorted(tout) == sorted(jout) == rotations
     for k in tout:
         assert_ct_equal(tout[k], jout[k])
+    for name, want in (("ckks.hoisted.mod_downs", chunks),
+                       ("ckks.hoisted.rotations", len(rotations) - 1)):
+        assert after.get(name, 0) - before.get(name, 0) == want, name
     assert median_bits(roundtrip(t, tout[2]), np.roll(world["va"], -2)) >= MIN_PREC
 
 

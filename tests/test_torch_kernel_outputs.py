@@ -118,6 +118,32 @@ def test_a_wrapper_returns_a_tensor_of_its_own_and_leaves_its_inputs(monkeypatch
         assert torch.equal(t, contents) and t._version == version
 
 
+def test_the_key_switch_writes_a_given_out_and_bumps_its_version(monkeypatch):
+    """``inner_product(..., out=o)`` hands ``o`` to the C entry, returns
+    it, bumps its ``_version`` (the write is seen by ``tjit``'s copy-skip)
+    and leaves the inputs as they were; an ``out`` of another shape or not
+    contiguous is refused before any launch."""
+    lib = NullLib()
+    monkeypatch.setattr(_build, "takes_kernel", lambda source, *tensors: True)
+    monkeypatch.setitem(_build.LIBRARIES, "key_switch", lib)
+    _, inputs = key_switch_call(np.random.default_rng(3))
+    d, key0, key1, index = inputs
+    ring = ring_of(8, 4)
+    run = lambda o: key_switch.inner_product(d, key0, key1, ring, (0, 2, 3), 3, index=index, out=o)
+    before = [(t.clone(), t._version) for t in inputs]
+    o = torch.empty((5, 2, 2, 3, ring.n), dtype=torch.int64)[1]
+    version = o._version
+    assert run(o) is o and o._version > version
+    assert len(lib.calls) == 1 and o.data_ptr() in lib.calls[0][1]
+    for t, (contents, v) in zip(inputs, before, strict=True):
+        assert torch.equal(t, contents) and t._version == v
+    for bad in (torch.empty((2, 2, 4, ring.n), dtype=torch.int64),
+                torch.empty((2, 2, 3, 2 * ring.n), dtype=torch.int64)[..., ::2]):
+        with pytest.raises(ValueError, match="no contiguous"):
+            run(bad)
+    assert len(lib.calls) == 1
+
+
 def test_an_eager_forward_counts_what_the_parent_counted(monkeypatch):
     """``entry()``'s PN12QP109 forward with every kernel behind the fake
     library: ``launch_counts()`` has the keys and values the parent's

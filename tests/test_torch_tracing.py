@@ -593,7 +593,8 @@ def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
     assert P.counters(replayed=True)["tjit.copy_in_bytes"] == 2 * ct.value[0].numel() * 8
 
 
-LINEAR = ("ckks.rotations", "ckks.decompositions", "ckks.linear.pt_products")
+LINEAR = ("ckks.rotations", "ckks.decompositions", "ckks.linear.pt_products",
+          "ckks.hoisted.mod_downs", "ckks.hoisted.rotations")
 
 
 def _captured(fn, args):
@@ -632,7 +633,8 @@ def test_a_captured_linear_layer_counts_its_rotations_a_replay(monkeypatch, ckks
     """An 8 x 128 layer (4 baby x 2 giant steps, 4 fold steps) as one
     captured program: the capture's 3 + 1 + 4 rotations, 1 + 1 + 4
     decompositions and 8 products are the program's, counted once a
-    replay."""
+    replay, and so are its baby steps' one stacked ModDown of 3
+    rotations."""
     _FakeCuda().install(monkeypatch)
     w = ckks_world
     params, ev = w["params"], w["ev"]
@@ -646,7 +648,8 @@ def test_a_captured_linear_layer_counts_its_rotations_a_replay(monkeypatch, ckks
     diags = ckks.encode_diagonals(params, weights, 4, device="cpu")
     prog, dyn = _captured(lambda ct, rk: ckks.mul_matrix_hybrid(ev, ct, diags, rk),
                           (w["ct"], keys))
-    want = {"ckks.rotations": 8, "ckks.decompositions": 6, "ckks.linear.pt_products": 8}
+    want = {"ckks.rotations": 8, "ckks.decompositions": 6, "ckks.linear.pt_products": 8,
+            "ckks.hoisted.mod_downs": 1, "ckks.hoisted.rotations": 3}
     assert {k: prog.counts.captured[k] for k in LINEAR} == want
     assert {k: P.counters()[k] for k in LINEAR} == want  # the warm-up's
     replay(prog, dyn)
