@@ -80,8 +80,12 @@ PN15QP880 and of a set with alpha = 3, and times it at the benchmark's
 shapes (``[8, 34, 65536]``, ``[34, 65536]``, the Chebyshev's ``[17, 32768]``)
 in turns with the path it replaced (a ``mod_up`` a digit, ``cat``, ``stack``).
 
-``--phases a,b`` runs a subset (device, build, kernels, decompose, small, main_path,
-full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, bench, jit, and
+The ``ct_matrix`` phase holds the plaintext-matrix kernel bit for bit
+against its plain version at the three layers of the CryptoNets cell and
+times each beside its bound.
+
+``--phases a,b`` runs a subset (device, build, kernels, decompose, ct_matrix, small,
+main_path, full_width, ckks, bfv15, dbfv, rotate, dckks, parallel, examples, bench, jit, and
 two that are not in the default run: ``routes``, the grid of every NTT
 kernel's device time by N and rows behind ``Ring._route``'s table, and
 ``profile``: one replay of
@@ -130,7 +134,7 @@ from lattigo_tpu_torch.entry import (dryrun_multichip, entry, entry_cheby31, ent
                                      entry_dbfv_pir, entry_dckks_sigmoid, fold, rolled_variants)
 from lattigo_tpu_torch.examples import bfv_riding, ckks_sigmoid, dbfv_pir, dbfv_psi
 from lattigo_tpu_torch.models import bfv, ckks, dbfv, dckks
-from lattigo_tpu_torch.ops import basis_ext, galois, key_switch, modred_kernel as mk
+from lattigo_tpu_torch.ops import basis_ext, ct_matrix, galois, key_switch, modred_kernel as mk
 from lattigo_tpu_torch.ops import mxu_ntt, number_theory as nt, pallas_ntt, tile_ntt
 from lattigo_tpu_torch.ops import ring as ring_mod
 from lattigo_tpu_torch.ops import u64 as u
@@ -142,6 +146,8 @@ from lattigo_tpu_torch.utils import serialization as ser
 from lattigo_tpu_torch.utils import profiling
 from lattigo_tpu_torch.utils.precision import precision_stats
 from lattigo_tpu_torch.utils.profiling import OpProfiler
+
+from fhe_bench.ct_matrix_roofline import layer_bound_s
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -225,6 +231,10 @@ KS_TIMED = (65536, 38, 9, 8)  # N, limbs, beta, batch: the PN16QP1761 x 8 fold
 # (ckks.mul_matrix_hybrid), d the diagonals [16, 64, 10, N], the keys the
 # two halves of the baby stack [64, 10, N]
 KS_MATVEC = (16384, 64, 16)
+# the three layers of CryptoNets' MNIST network at PN14QP438 (the cell
+# cryptonets_pn14qp438.b8192): name, outputs, inputs, level, convolution
+CT_MATRIX_LAYERS = (("conv", 845, 784, 9, True), ("dense1", 100, 845, 7, False),
+                    ("dense2", 10, 100, 5, False))
 # 32-bit multiplies of each op of the modular pass (a 64 x 64 -> 128 product
 # is 4 for its high word and 3 for its low word), for its operation bound
 MODRED_MULS = dict(cred=0, add=0, sub=0, neg=0, mred=14, mred_constant=14, mred_add=14,
@@ -1249,6 +1259,84 @@ def phase_kernels() -> None:
          key_switch_times=key_switch_times)
     if bad:
         fail(f"{len(bad)} kernel cases disagree with the plain version")
+
+
+def ct_matrix_operands(qs, n: int, n_out: int, n_in: int, conv: bool, fill: str, gen):
+    """The stack (x0, x1) [n_in, L, N] and the tables of one layer over the
+    moduli ``qs``: the CryptoNets convolution's taps (``conv``; 5 maps over
+    28 x 28 pixels, the last row and column of the 29 x 29 window padding)
+    or every tap.  ``fill``: ``random`` (words below each modulus, negative
+    weights among the weights), or ``max_products`` (every x and every
+    weight q - 1)."""
+    if conv:
+        w = np.ones((5, 5, 5))
+        rows, cols, _, n_out = ckks.cryptonets.conv_taps(w, 28, 29, 2)
+    else:
+        rows, cols = np.indices((n_out, n_in)).reshape(2, -1)
+    rng = np.random.default_rng(len(rows) + len(qs))
+    x = torch.randint(0, 1 << 62, (2, n_in, len(qs), n), dtype=torch.int64, device=DEV,
+                      generator=gen)
+    q = torch.tensor(qs, dtype=torch.int64, device=DEV)[:, None]
+    if fill == "max_products":
+        x = (q - 1).expand(2, n_in, len(qs), n).contiguous()
+        res = np.array([[q_ - 1] * len(rows) for q_ in qs], dtype=np.uint64)
+        bias = np.array([[q_ - 1] * n_out for q_ in qs], dtype=np.uint64)
+    else:
+        x = x % q
+        signed = rng.integers(-(1 << 33), 1 << 33, len(rows))
+        res = np.array([[int(v) % q_ for v in signed] for q_ in qs], dtype=np.uint64)
+        bias = np.array([[int(v) % q_ for v in rng.integers(-(1 << 40), 1 << 40, n_out)]
+                         for q_ in qs], dtype=np.uint64)
+    tab = ct_matrix.tables(rows, cols, res, bias, qs, n_in, n_out, DEV)
+    return x[0], x[1], tab
+
+
+def ct_matrix_plain_chunked(x0, x1, tab, chunk: int = 2048):
+    """The plain version a chunk of coefficients at a time (each coefficient
+    is its own sum): the full shape's temporaries would not fit."""
+    return torch.cat([ct_matrix.ct_matrix_plain(x0[..., i : i + chunk], x1[..., i : i + chunk],
+                                                tab) for i in range(0, x0.shape[-1], chunk)],
+                     dim=-1)
+
+
+def phase_ct_matrix() -> None:
+    """The plaintext-matrix kernel (``csrc/ct_matrix.cu``) bit for bit
+    against its plain version at the three layers of the CryptoNets cell
+    (PN14QP438's moduli, N = 16384), on random words with negative weights
+    and on words whose every product is (q - 1)^2; a small layer on primes
+    just below 2^61 (a fold every 63 products, 845 taps); then each layer
+    timed (``ms``, ``device_ms``, ``plain_ms``) beside its bound
+    (``fhe_bench/ct_matrix_roofline.py``)."""
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    qs = list(ckks.default_params(ckks.PN14QP438).qi)
+    n = 16384
+    results, rows = [], []
+    for fill in ("random", "max_products"):
+        x0, x1, tab = ct_matrix_operands(primes_below_2_61(1024, 3), 1024, 12, 845, False, fill,
+                                         gen)
+        results.append(dict(layer="fold", fill=fill, fold=tab.fold, err=max_abs_err(
+            ct_matrix.ct_matrix(x0, x1, tab), ct_matrix.ct_matrix_plain(x0, x1, tab))))
+    for name, n_out, n_in, level, conv in CT_MATRIX_LAYERS:
+        for fill in ("random", "max_products"):
+            x0, x1, tab = ct_matrix_operands(qs[: level + 1], n, n_out, n_in, conv, fill, gen)
+            fn = lambda: ct_matrix.ct_matrix(x0, x1, tab)  # noqa: E731
+            plain = lambda: ct_matrix_plain_chunked(x0, x1, tab)  # noqa: E731
+            results.append(dict(layer=name, fill=fill, tile=tab.tile, tiles=tab.tiles.shape[0],
+                                err=max_abs_err(fn(), plain())))
+            if fill == "random":
+                bound = layer_bound_s(dict(
+                    outputs=n_out, inputs=n_in, nonzeros=tab.products, limbs=level + 1, n=n,
+                    q_bits=[q.bit_length() for q in qs[: level + 1]], weight_bits=34))
+                rows.append(dict(kernel="ct_matrix", layer=name, shape=[n_out, n_in, level + 1, n],
+                                 products=tab.products, ms=time_ms(fn),
+                                 device_ms=device_time(fn), plain_ms=time_ms(plain, reps=1),
+                                 bound_ms=bound * 1e3))
+            del x0, x1, tab, fn, plain
+            torch.cuda.empty_cache()
+    bad = [r for r in results if r["err"] != 0]
+    emit("ct_matrix", cases=len(results), ok=not bad, failed=bad, results=results, times=rows)
+    if bad:
+        fail(f"{len(bad)} plaintext-matrix cases disagree with the plain version")
 
 
 # every N with more than one kernel: the long-row kernel's 1024 .. 32768,
@@ -2630,8 +2718,8 @@ def main() -> None:
     global BASELINE, BASELINE_ROW
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,decompose,small,main_path,full_width,ckks,bfv15,dbfv,"
-                            "rotate,dckks,parallel,examples,bench,jit")
+                    default="device,build,kernels,decompose,ct_matrix,small,main_path,full_width,"
+                            "ckks,bfv15,dbfv,rotate,dckks,parallel,examples,bench,jit")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--baseline-passes", default=None)
@@ -2653,6 +2741,8 @@ def main() -> None:
         phase_kernels()
     if "decompose" in phases:
         phase_decompose()
+    if "ct_matrix" in phases:
+        phase_ct_matrix()
     if "routes" in phases:
         phase_routes()
     if "small" in phases:
@@ -2668,7 +2758,8 @@ def main() -> None:
         # kernel (Ring._route)
         if res["counts"] != {"ntt_tile_fwd": 0, "ntt_tile_inv": 0, "ntt_mxu_fwd": 0,
                              "ntt_mxu_inv": 0, "ntt_passes_fwd": 7, "ntt_passes_inv": 4,
-                             "modred": 22, "mod_up": 8, "key_switch": 1, "decompose": 0}:
+                             "modred": 22, "mod_up": 8, "key_switch": 1, "decompose": 0,
+                             "ct_matrix": 0}:
             fail(f"launch counts of one forward are {res['counts']}, expected 11 long-row, "
                  "22 modular-pass, 8 basis-extension and 1 key-switch launches")
         if res["cuda_kernels"]["outside_ntt"] > MAX_OTHER_KERNELS:

@@ -1,4 +1,4 @@
-"""The one seam between the port's six kernel wrappers (``ops/``) and their
+"""The one seam between the port's seven kernel wrappers (``ops/``) and their
 CUDA kernels: it builds ``csrc/*.cu`` into shared libraries with a plain C
 interface, loads them with ``ctypes``, decides whether a call launches, and
 launches, counts and records.
@@ -82,6 +82,10 @@ ENTRIES = {
     "decompose": Entry("decompose_launch", "decompose", False,
                        (_P,) + (_LL,) * 3 + (_P,) * 2 + (_LL,) * 2 + (_I,) * 5 + (_P,),
                        source="mod_up"),
+    # x0, x1, their 3 strides; the weights, columns, tiles, bias, constants,
+    # out; tiles, taps, outputs, N; L, tile, fold
+    "ct_matrix": Entry("ct_matrix_launch", "ct_matrix", False,
+                       (_P,) * 9 + (_LL,) * 4 + (_I,) * 3 + (_P,)),
 }
 
 
@@ -93,7 +97,8 @@ def source_of(name: str) -> str:
 SOURCES = tuple(dict.fromkeys(map(source_of, ENTRIES)))
 
 # Route the modular kernels' CUDA tensors (modred, mod_up, decompose,
-# key_switch) to their plain versions: chip_smoke.py's before / after trace.
+# key_switch, ct_matrix) to their plain versions: chip_smoke.py's before /
+# after trace.
 FORCE_PLAIN = False
 
 LIBRARIES: dict[str, ctypes.CDLL] = {}  # by source: what load() loaded, or a stand-in
@@ -235,7 +240,7 @@ def launch_counts() -> dict[str, int]:
     direction (``ntt_tile_fwd``, ``ntt_tile_inv``, ``ntt_mxu_fwd``, ...),
     then the modular pass (``modred``), the basis extension (``mod_up``),
     the key switch's inner product (``key_switch``) and its decomposition
-    (``decompose``)."""
+    (``decompose``), and the plaintext-matrix product (``ct_matrix``)."""
     out = {}
     for e in ENTRIES.values():
         launches, inverse, _ = _COUNTS[e.kernel]
@@ -248,7 +253,8 @@ def launch_counts() -> dict[str, int]:
 
 def copy_counts() -> dict[str, int]:
     """Operand copies the modular kernels' launch plans made since the last
-    reset, by kernel (``modred``, ``mod_up``, ``key_switch``, ``decompose``)."""
+    reset, by kernel (``modred``, ``mod_up``, ``key_switch``, ``decompose``,
+    ``ct_matrix``)."""
     return {e.kernel: _COUNTS[e.kernel][2] for e in ENTRIES.values() if not e.ntt}
 
 
@@ -261,13 +267,13 @@ def reset_launch_counts() -> None:
 def record():
     """Yields a list that collects ``(name, layouts, constants)`` for every
     launch of the modular kernels in the block (the calls a path gives
-    them): ``name`` the modular pass's op, ``mod_up``, ``decompose`` or
-    ``key_switch``; ``layouts`` the operands' ``(shape, stride)``;
-    ``constants`` the modular pass's per-limb constant operands (q, qinv,
-    u0, u1) themselves (no copy: a capture may be recording), ``mod_up``'s
-    ``(params, dst_sel, centered)``, ``decompose``'s ``(decomposer,
-    level)``, or the key switch's ``(ring, limbs, beta, beta_axis,
-    index)``."""
+    them): ``name`` the modular pass's op, ``mod_up``, ``decompose``,
+    ``key_switch`` or ``ct_matrix``; ``layouts`` the operands' ``(shape,
+    stride)``; ``constants`` the modular pass's per-limb constant operands
+    (q, qinv, u0, u1) themselves (no copy: a capture may be recording),
+    ``mod_up``'s ``(params, dst_sel, centered)``, ``decompose``'s
+    ``(decomposer, level)``, the key switch's ``(ring, limbs, beta,
+    beta_axis, index)``, or the plaintext-matrix product's ``(tables,)``."""
     global _RECORD
     prev, _RECORD = _RECORD, []
     try:

@@ -14,7 +14,9 @@ class Encryptor:
     """pk path: ct = (pk0*u + e0 + m, pk1*u + e1), sampled in QP and divided
     by P (ckks/encryptor.go:179-237); the fast path samples in Q.  sk path:
     ct = (-a*s + e + m, a).  Every draw comes from one ``torch.Generator``
-    seeded with ``seed``."""
+    seeded with ``seed``.  A plaintext whose value has leading dims is a
+    stack: each of its plaintexts gets draws of its own, in one batched draw
+    (an unstacked plaintext draws as before)."""
 
     def __init__(self, params, pk=None, sk=None, device=None, seed: int = 42):
         assert (pk is None) != (sk is None), "provide exactly one of pk/sk"
@@ -48,22 +50,23 @@ class Encryptor:
         lvl = pt.level
         sigma = self.params.sigma
         gen = self.gen
+        batch = tuple(pt.value.shape[:-2])
         if fast:
             ring = ctx.ring_q
             pk0, pk1 = (drop_to_level(p, ring.L - 1) for p in self.pk.pk)
-            uu = ring.ntt(samplers.ternary_poly(gen, ring, 0.5, montgomery=True))
+            uu = ring.ntt(samplers.ternary_poly(gen, ring, 0.5, montgomery=True, batch=batch))
             c0 = ring.mul_coeffs_montgomery(uu, pk0)
             c1 = ring.mul_coeffs_montgomery(uu, pk1)
-            c0 = ring.add(c0, ring.ntt(samplers.gaussian_poly(gen, ring, sigma)))
-            c1 = ring.add(c1, ring.ntt(samplers.gaussian_poly(gen, ring, sigma)))
+            c0 = ring.add(c0, ring.ntt(samplers.gaussian_poly(gen, ring, sigma, batch=batch)))
+            c1 = ring.add(c1, ring.ntt(samplers.gaussian_poly(gen, ring, sigma, batch=batch)))
             c0, c1 = drop_to_level(c0, lvl), drop_to_level(c1, lvl)
         else:
             ring = ctx.ring_qp
-            uu = ring.ntt(samplers.ternary_poly(gen, ring, 0.5, montgomery=True))
+            uu = ring.ntt(samplers.ternary_poly(gen, ring, 0.5, montgomery=True, batch=batch))
             c0 = ring.intt(ring.mul_coeffs_montgomery(uu, self.pk.pk[0]))
             c1 = ring.intt(ring.mul_coeffs_montgomery(uu, self.pk.pk[1]))
-            c0 = ring.add(c0, samplers.gaussian_poly(gen, ring, sigma))
-            c1 = ring.add(c1, samplers.gaussian_poly(gen, ring, sigma))
+            c0 = ring.add(c0, samplers.gaussian_poly(gen, ring, sigma, batch=batch))
+            c1 = ring.add(c1, samplers.gaussian_poly(gen, ring, sigma, batch=batch))
             c0, c1 = self._mod_down_ntt(c0, lvl), self._mod_down_ntt(c1, lvl)
         return Ciphertext([ctx.ring_q.add(c0, pt.value), c1], pt.scale)
 
@@ -72,14 +75,15 @@ class Encryptor:
         lvl = pt.level
         sigma = self.params.sigma
         ring = ctx.ring_q if fast else ctx.ring_qp
-        a = samplers.uniform_poly(self.gen, ring) if crp is None else crp
+        batch = tuple(pt.value.shape[:-2])
+        a = samplers.uniform_poly(self.gen, ring, batch=batch) if crp is None else crp
         sk = drop_to_level(self.sk.sk, ring.L - 1)
         c0 = ring.neg(ring.mul_coeffs_montgomery(a, sk))
         if fast:
-            c0 = ring.add(c0, ring.ntt(samplers.gaussian_poly(self.gen, ring, sigma)))
+            c0 = ring.add(c0, ring.ntt(samplers.gaussian_poly(self.gen, ring, sigma, batch=batch)))
             c0, c1 = drop_to_level(c0, lvl), drop_to_level(a, lvl)
         else:
-            c0 = ring.add(ring.intt(c0), samplers.gaussian_poly(self.gen, ring, sigma))
+            c0 = ring.add(ring.intt(c0), samplers.gaussian_poly(self.gen, ring, sigma, batch=batch))
             c0, c1 = self._mod_down_ntt(c0, lvl), self._mod_down_ntt(ring.intt(a), lvl)
         return Ciphertext([ctx.ring_q.add(c0, pt.value), c1], pt.scale)
 

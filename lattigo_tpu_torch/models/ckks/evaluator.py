@@ -24,7 +24,7 @@ import torch
 
 from lattigo_tpu_torch.models.ckks.context import get_context
 from lattigo_tpu_torch.models.ckks.elements import Ciphertext, drop_to_level, polys_of
-from lattigo_tpu_torch.ops import galois, key_switch, number_theory as nt, scaling
+from lattigo_tpu_torch.ops import ct_matrix, galois, key_switch, number_theory as nt, scaling
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.tjit import GraphPool, tjit
@@ -55,6 +55,13 @@ def _chunks(ks: list[int], size: int) -> list[tuple[int, int]]:
         else:
             runs.append((i, i + 1))
     return runs
+
+
+def _relinearized(c2: torch.Tensor) -> None:
+    """Counts the ciphertexts of a relinearization (``ckks.relinearized``:
+    the stack of ``c2``, in Python, so that a captured program counts its
+    capture's once a replay)."""
+    profiling.count("ckks.relinearized", math.prod(c2.shape[:-2]))
 
 
 def _scale_up_exact(value: float, n: float, q: int) -> int:
@@ -200,6 +207,32 @@ class Evaluator:
         ]
         return Ciphertext(out, acc.scale)
 
+    def mul_plain_matrix(self, ct: Ciphertext, matrix) -> Ciphertext:
+        """A plaintext matrix applied to a stack of ciphertexts: output j is
+        ``sum_k w[j, k] ct[k] + b[j]`` over the nonzero taps of row j of
+        ``matrix`` (a ``PlainMatrix``), ``ct``'s polys being ``[n_in, lvl +
+        1, N]``; the result's are ``[n_out, lvl + 1, N]`` at the scale
+        ``ct.scale`` times the default scale.  Lattigo's loop of
+        ``MultByConstAndAdd`` and ``AddConst`` (ckks/evaluator.go:375-607,
+        scale rules in ``plain_matrix``) as one launch of
+        ``csrc/ct_matrix.cu``; the tables are made at the first call of a
+        level.
+
+        Recorder: the span ``ckks.ct_matrix`` and the counter
+        ``ckks.ct_matrix.products`` (the nonzero taps), counted in Python,
+        so that a captured program counts its capture's once a replay."""
+        if ct.degree != 1 or ct.value[0].ndim != 3 or ct.value[0].shape[0] != matrix.n_in:
+            raise ValueError(f"a {matrix.n_out} x {matrix.n_in} matrix on a stack "
+                             f"{[tuple(p.shape) for p in ct.value]}")
+        lvl = ct.level
+        scale = ct.scale * self.ctx.scale
+        with profiling.span("ckks.ct_matrix"):
+            profiling.count("ckks.ct_matrix.products", matrix.products)
+            tab = matrix.tables(self.ctx.ring_q.moduli[: lvl + 1], self.ctx.scale, scale,
+                                self.ctx.device)
+            y = ct_matrix.ct_matrix(ct.value[0], ct.value[1], tab)
+        return Ciphertext([y[0], y[1]], scale)
+
     def mult_by_i(self, ct: Ciphertext) -> Ciphertext:
         return self.mult_by_const(ct, 1j)
 
@@ -261,6 +294,7 @@ class Evaluator:
             c2 = ring.mul_coeffs_montgomery(c01, v1[1])
             if rlk is None:
                 return Ciphertext([c0, c1, c2], out_scale)
+            _relinearized(c2)
             p0, p1 = self._switch_keys_core(lvl, c2, rlk.evakey)
             return Ciphertext([ring.add(c0, p0), ring.add(c1, p1)], out_scale)
 
@@ -272,6 +306,7 @@ class Evaluator:
     def relinearize(self, ct: Ciphertext, rlk) -> Ciphertext:
         assert ct.degree == 2
         ring = self.ctx.ring_q
+        _relinearized(ct.value[2])
         p0, p1 = self._switch_keys_core(ct.level, ct.value[2], rlk.evakey)
         return Ciphertext([ring.add(ct.value[0], p0), ring.add(ct.value[1], p1)], ct.scale)
 

@@ -1,9 +1,9 @@
 """The arithmetic of the modular kernels built for the host CPU.
 
-``csrc/modred.cu``, ``csrc/mod_up.cu`` and ``csrc/key_switch.cu`` keep their
-per-element, per-column and per-tile arithmetic outside ``#ifdef
-__CUDACC__`` (``csrc/modarith.cuh`` maps ``__umul64hi`` to a 128-bit
-product there).  :func:`load` compiles a
+``csrc/modred.cu``, ``csrc/mod_up.cu``, ``csrc/key_switch.cu`` and
+``csrc/ct_matrix.cu`` keep their per-element, per-column and per-tile
+arithmetic outside ``#ifdef __CUDACC__`` (``csrc/modarith.cuh`` maps
+``__umul64hi`` to a 128-bit product there).  :func:`load` compiles a
 source with the host C++ compiler behind a C entry of the same name and
 signature as the CUDA one (the stream is ignored), looping over rows and
 coefficient columns as the kernel's threads do.  A library it returns can
@@ -115,6 +115,42 @@ extern "C" int key_switch_launch(const void* d, const long long* dstr, const voi
     return 0;
 }
 """,
+    "ct_matrix": r"""
+#include "ct_matrix.cu"
+template <int TILE>
+static void run(const Args& a) {
+    for (long long t = 0; t < a.T; ++t) {
+        const long long* tile = a.tiles + t * TABLE;
+        for (int l = 0; l < a.L; ++l) {
+            const u64* c = a.consts + l * CONSTS;
+            for (long long n = 0; n < a.N; ++n) {
+                u64 lo[2][TILE] = {}, hi[2][TILE] = {};
+                int pending = 0;
+                accumulate<TILE>(a, a.col + tile[0], a.w + (l * a.P + tile[0]) * MAX_TILE,
+                                 (int)tile[1], (int)tile[2], l * a.sl + n * a.sn, c, lo, hi,
+                                 pending);
+                finish<TILE>(a, tile, l, n, c, lo, hi);
+            }
+        }
+    }
+}
+extern "C" int ct_matrix_launch(const void* x0, const void* x1, const long long* xstr,
+                                const void* w, const void* col, const void* tiles,
+                                const void* bias, const void* consts, void* out, long long T,
+                                long long P, long long J, long long N, int L, int tile,
+                                int fold, void* stream) {
+    Args a;
+    if (make_args(a, x0, x1, xstr, w, col, tiles, bias, consts, out, T, P, J, N, L, tile, fold))
+        return -2;
+    switch (tile) {
+        case 1: run<1>(a); break;
+        case 2: run<2>(a); break;
+        case 4: run<4>(a); break;
+        default: run<MAX_TILE>(a);
+    }
+    return 0;
+}
+""",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -127,9 +163,9 @@ def _paths(name: str) -> tuple[list[str], str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The host build of ``csrc/<name>.cu`` (``modred``, ``mod_up`` or
-    ``key_switch``), compiled into ``build/host/`` when missing or older
-    than its sources."""
+    """The host build of ``csrc/<name>.cu`` (``modred``, ``mod_up``,
+    ``key_switch`` or ``ct_matrix``), compiled into ``build/host/`` when
+    missing or older than its sources."""
     if name in _libs:
         return _libs[name]
     deps, lib = _paths(name)

@@ -17,7 +17,8 @@ import torch
 
 from lattigo_tpu_torch import _build
 from lattigo_tpu_torch.entry import entry
-from lattigo_tpu_torch.ops import basis_ext, galois, key_switch, mxu_ntt, pallas_ntt, tile_ntt
+from lattigo_tpu_torch.ops import basis_ext, ct_matrix, galois, key_switch, mxu_ntt, pallas_ntt
+from lattigo_tpu_torch.ops import tile_ntt
 from lattigo_tpu_torch.ops import modred_kernel as mk
 from lattigo_tpu_torch.ops import number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
@@ -87,6 +88,15 @@ def decompose_call(rng):
     return lambda: dec.decompose(4, x), [x]
 
 
+def ct_matrix_call(rng):
+    ring = ring_of(8, 3)
+    x = residues(rng, ring, (5, 2, 3, ring.n))  # [K, 2, L, N]: two strided halves
+    rows, cols = np.nonzero(rng.random((4, 5)) < 0.7)
+    w = np.stack([rng.integers(0, q, len(rows), dtype=np.uint64) for q in ring.moduli])
+    tab = ct_matrix.tables(rows, cols, w, None, ring.moduli, 5, 4, "cpu")
+    return lambda: ct_matrix.ct_matrix(x[:, 0], x[:, 1], tab), [x]
+
+
 CALLS = {
     "ntt_row": ntt_call(tile_ntt.ntt_tile, 8),
     "ntt_passes": ntt_call(pallas_ntt.ntt_passes, 10),
@@ -95,6 +105,7 @@ CALLS = {
     "mod_up": mod_up_call,
     "key_switch": key_switch_call,
     "decompose": decompose_call,
+    "ct_matrix": ct_matrix_call,
 }
 
 
@@ -149,7 +160,8 @@ def test_an_eager_forward_counts_what_the_parent_counted(monkeypatch):
     library: ``launch_counts()`` has the keys and values the parent's
     counters gave (``chip_smoke.py``'s ``main_path`` on the card: 7 + 4
     long-row transforms, 22 modular passes, 8 basis extensions, 1 key
-    switch), and no launch of the CKKS decomposition: BFV keeps its own."""
+    switch), and no launch of the CKKS decomposition (BFV keeps its own)
+    nor of the plaintext-matrix product."""
     forward, args = entry(device="cpu")
     monkeypatch.setattr(_build, "takes_kernel", lambda source, *tensors: True)
     for source in _build.SOURCES:
@@ -159,4 +171,4 @@ def test_an_eager_forward_counts_what_the_parent_counted(monkeypatch):
     assert _build.launch_counts() == {
         "ntt_tile_fwd": 0, "ntt_tile_inv": 0, "ntt_mxu_fwd": 0, "ntt_mxu_inv": 0,
         "ntt_passes_fwd": 7, "ntt_passes_inv": 4, "modred": 22, "mod_up": 8, "key_switch": 1,
-        "decompose": 0}
+        "decompose": 0, "ct_matrix": 0}

@@ -571,9 +571,11 @@ def test_the_chebyshev_records_its_basis_and_tree_spans(ckks_world):
 def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
     """The CKKS cells' program, ``rescale(mul_relin)``, captured with the
     modular kernel's launches counted: its capture's counters are the NTT
-    rows, the launches by wrapper and the call's own, no more, and as many
-    as before the polynomial evaluator had counters; a replay on new
-    ciphertexts copies their bytes in."""
+    rows, the launches by wrapper, the call's own and the one ciphertext it
+    relinearizes (``ckks.relinearized``, which every relinearization
+    counts), no more, and as many launches and rows as before the
+    polynomial evaluator had counters; a replay on new ciphertexts copies
+    their bytes in."""
     fake = _FakeCuda()
     fake.install(monkeypatch)
     _fake_modred(monkeypatch)
@@ -588,7 +590,8 @@ def test_an_existing_program_gets_no_new_counter_or_launch(monkeypatch):
     prog = T._Graph(lambda a, b: ev.rescale(ev.mul_relin(ckks.Ciphertext([a, b], ct.scale),
                                                          ckks.Ciphertext([a, b], ct.scale), rlk)),
                     lambda ts: tuple(ts), dyn, None)
-    assert prog.counts.captured == {"ntt.rows.tile": 29, "launches.modred": 17, "tjit.replays": 1}
+    assert prog.counts.captured == {"ntt.rows.tile": 29, "launches.modred": 17, "tjit.replays": 1,
+                                    "ckks.relinearized": 1}
     replay(prog, [t.clone() for t in dyn])
     assert P.counters(replayed=True)["tjit.copy_in_bytes"] == 2 * ct.value[0].numel() * 8
 
@@ -627,6 +630,29 @@ def test_the_ckks_cells_captures_count_no_rotation(monkeypatch, ckks_world, cell
     replay(prog, dyn)
     assert prog.counts.captured["ntt.rows.tile"] > 0
     assert not set(LINEAR) & (set(prog.counts.captured) | set(P.counters()))
+
+
+def test_a_captured_network_counts_its_products_and_relinearizations_a_replay(monkeypatch):
+    """CryptoNets' network at its tiny test size (6 x 6 pixels, 20 -> 6 ->
+    10) as one captured program: the capture's 405 + 120 + 60 nonzero
+    scalar x ciphertext products and 20 + 6 relinearized ciphertexts are
+    the program's, counted once a replay."""
+    import json
+    from pathlib import Path
+
+    from fhe_bench.apps import cryptonets
+
+    _FakeCuda().install(monkeypatch)
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "fhe_bench" / "tests" / "data"
+                      / "tiny_cryptonets.json").read_text())
+    a = cryptonets.App(cfg, dict(pool=1), 2**31 + 9, torch.device("cpu"))
+    ev = ckks.Evaluator(cryptonets.parameters(cfg), device="cpu")
+    prog, dyn = _captured(lambda ct, rlk: a.net.forward(ev, ct, rlk), (a.cts[0], a.rlk))
+    want = {"ckks.ct_matrix.products": 585, "ckks.relinearized": 26}
+    assert {k: prog.counts.captured[k] for k in want} == want
+    replay(prog, dyn)
+    replay(prog, dyn)
+    assert {k: P.counters(replayed=True)[k] for k in want} == {k: 2 * v for k, v in want.items()}
 
 
 def test_a_captured_linear_layer_counts_its_rotations_a_replay(monkeypatch, ckks_world):
