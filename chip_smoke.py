@@ -1266,8 +1266,9 @@ def ct_matrix_operands(qs, n: int, n_out: int, n_in: int, conv: bool, fill: str,
     moduli ``qs``: the CryptoNets convolution's taps (``conv``; 5 maps over
     28 x 28 pixels, the last row and column of the 29 x 29 window padding)
     or every tap.  ``fill``: ``random`` (words below each modulus, negative
-    weights among the weights), or ``max_products`` (every x and every
-    weight q - 1)."""
+    weights among the weights), ``max_products`` (every x and every
+    weight q - 1) or ``max_weights`` (every x q - 1, the weights +-(2^33 -
+    1) in turn: 5 digits at their widest)."""
     if conv:
         w = np.ones((5, 5, 5))
         rows, cols, _, n_out = ckks.cryptonets.conv_taps(w, 28, 29, 2)
@@ -1277,10 +1278,13 @@ def ct_matrix_operands(qs, n: int, n_out: int, n_in: int, conv: bool, fill: str,
     x = torch.randint(0, 1 << 62, (2, n_in, len(qs), n), dtype=torch.int64, device=DEV,
                       generator=gen)
     q = torch.tensor(qs, dtype=torch.int64, device=DEV)[:, None]
-    if fill == "max_products":
+    if fill in ("max_products", "max_weights"):
         x = (q - 1).expand(2, n_in, len(qs), n).contiguous()
         res = np.array([[q_ - 1] * len(rows) for q_ in qs], dtype=np.uint64)
         bias = np.array([[q_ - 1] * n_out for q_ in qs], dtype=np.uint64)
+        if fill == "max_weights":
+            signed = np.where(np.arange(len(rows)) % 2, 1, -1) * ((1 << 33) - 1)
+            res = np.array([[int(v) % q_ for v in signed] for q_ in qs], dtype=np.uint64)
     else:
         x = x % q
         signed = rng.integers(-(1 << 33), 1 << 33, len(rows))
@@ -1303,26 +1307,29 @@ def phase_ct_matrix() -> None:
     """The plaintext-matrix kernel (``csrc/ct_matrix.cu``) bit for bit
     against its plain version at the three layers of the CryptoNets cell
     (PN14QP438's moduli, N = 16384), on random words with negative weights
-    and on words whose every product is (q - 1)^2; a small layer on primes
-    just below 2^61 (a fold every 63 products, 845 taps); then each layer
-    timed (``ms``, ``device_ms``, ``plain_ms``) beside its bound
-    (``fhe_bench/ct_matrix_roofline.py``)."""
+    on words whose every product is (q - 1)^2, and on words at q - 1 with
+    weights at +-(2^33 - 1); a small layer on primes just below 2^61 (8
+    bytes a word; the plain version's 128-bit fold every 63 products, 845
+    taps); then each layer timed (``ms``, ``device_ms``, ``plain_ms``)
+    beside its bound (``fhe_bench/ct_matrix_roofline.py``)."""
     gen = torch.Generator(device=DEV).manual_seed(25)
     qs = list(ckks.default_params(ckks.PN14QP438).qi)
     n = 16384
     results, rows = [], []
-    for fill in ("random", "max_products"):
+    for fill in ("random", "max_products", "max_weights"):
         x0, x1, tab = ct_matrix_operands(primes_below_2_61(1024, 3), 1024, 12, 845, False, fill,
                                          gen)
-        results.append(dict(layer="fold", fill=fill, fold=tab.fold, err=max_abs_err(
+        results.append(dict(layer="fold", fill=fill, fold=tab.fold, digits=tab.digits,
+                            nbytes=tab.nbytes, err=max_abs_err(
             ct_matrix.ct_matrix(x0, x1, tab), ct_matrix.ct_matrix_plain(x0, x1, tab))))
     for name, n_out, n_in, level, conv in CT_MATRIX_LAYERS:
-        for fill in ("random", "max_products"):
+        for fill in ("random", "max_products", "max_weights"):
             x0, x1, tab = ct_matrix_operands(qs[: level + 1], n, n_out, n_in, conv, fill, gen)
             fn = lambda: ct_matrix.ct_matrix(x0, x1, tab)  # noqa: E731
             plain = lambda: ct_matrix_plain_chunked(x0, x1, tab)  # noqa: E731
-            results.append(dict(layer=name, fill=fill, tile=tab.tile, tiles=tab.tiles.shape[0],
-                                err=max_abs_err(fn(), plain())))
+            results.append(dict(layer=name, fill=fill, tiles=tab.tiles.shape[0],
+                                slabs=tab.slabs.shape[0], tb=tab.tb, tpw=tab.tpw, ss=tab.ss,
+                                digits=tab.digits, err=max_abs_err(fn(), plain())))
             if fill == "random":
                 bound = layer_bound_s(dict(
                     outputs=n_out, inputs=n_in, nonzeros=tab.products, limbs=level + 1, n=n,

@@ -82,10 +82,11 @@ ENTRIES = {
     "decompose": Entry("decompose_launch", "decompose", False,
                        (_P,) + (_LL,) * 3 + (_P,) * 2 + (_LL,) * 2 + (_I,) * 5 + (_P,),
                        source="mod_up"),
-    # x0, x1, their 3 strides; the weights, columns, tiles, bias, constants,
-    # out; tiles, taps, outputs, N; L, tile, fold
+    # x0, x1, their 3 strides; the weights' digits, columns, tiles, slabs,
+    # bias, constants, out; slabs, k-steps, outputs, N; L, digits, bytes,
+    # tiles a slab, tiles a warp, strips a block, slabs a block, plane fold
     "ct_matrix": Entry("ct_matrix_launch", "ct_matrix", False,
-                       (_P,) * 9 + (_LL,) * 4 + (_I,) * 3 + (_P,)),
+                       (_P,) * 10 + (_LL,) * 4 + (_I,) * 8 + (_P,)),
 }
 
 

@@ -1,15 +1,17 @@
 """The arithmetic of the modular kernels built for the host CPU.
 
 ``csrc/modred.cu``, ``csrc/mod_up.cu``, ``csrc/key_switch.cu`` and
-``csrc/ct_matrix.cu`` keep their per-element, per-column and per-tile
+``csrc/ct_matrix.cu`` keep their per-element, per-column and per-lane
 arithmetic outside ``#ifdef __CUDACC__`` (``csrc/modarith.cuh`` maps
 ``__umul64hi`` to a 128-bit product there).  :func:`load` compiles a
 source with the host C++ compiler behind a C entry of the same name and
 signature as the CUDA one (the stream is ignored), looping over rows and
-coefficient columns as the kernel's threads do.  A library it returns can
-stand in for the CUDA one behind the real wrappers, so that the CPU tests
-run the kernels' own source on the launch plans of a whole path.  Nothing
-here runs on a GPU.
+coefficient columns as the kernel's threads do; for ``ct_matrix`` over
+the warps of each block, each warp's 32 lanes at once, the tensor-core
+product replaced by a loop over the same fragments' byte products.  A
+library it returns can stand in for the CUDA one behind the real
+wrappers, so that the CPU tests run the kernels' own source on the launch
+plans of a whole path.  Nothing here runs on a GPU.
 """
 
 from __future__ import annotations
@@ -116,38 +118,130 @@ extern "C" int key_switch_launch(const void* d, const long long* dstr, const voi
 }
 """,
     "ct_matrix": r"""
+#include <vector>
 #include "ct_matrix.cu"
-template <int TILE>
-static void run(const Args& a) {
-    for (long long t = 0; t < a.T; ++t) {
-        const long long* tile = a.tiles + t * TABLE;
-        for (int l = 0; l < a.L; ++l) {
-            const u64* c = a.consts + l * CONSTS;
-            for (long long n = 0; n < a.N; ++n) {
-                u64 lo[2][TILE] = {}, hi[2][TILE] = {};
-                int pending = 0;
-                accumulate<TILE>(a, a.col + tile[0], a.w + (l * a.P + tile[0]) * MAX_TILE,
-                                 (int)tile[1], (int)tile[2], l * a.sl + n * a.sn, c, lo, hi,
-                                 pending);
-                finish<TILE>(a, tile, l, n, c, lo, hi);
+// A warp's registers: lane i's at [i].
+struct WarpFrag {
+    unsigned r[32][4];
+};
+struct WarpAcc {
+    int c[32][4];
+};
+struct WarpB {
+    u64 w[32];
+};
+// mma.sync m16n8k32 (u8 x s8 -> s32, the sums wrapping mod 2^32) over the
+// warp's fragments: A row r, column k in lane (r % 8) 4 + (k % 16) / 4,
+// register r / 8 + 2 (k / 16), byte k % 4; B column n, row k in lane
+// 4 n + (k % 16) / 4, word half k / 16, byte k % 4; C (r, n) in lane
+// 4 (r % 8) + n / 2, register 2 (r / 8) + n % 2.
+struct HostMma {
+    void operator()(WarpAcc& c, const WarpFrag& a, const WarpB& b) const {
+        for (int lane = 0; lane < 32; ++lane)
+            for (int i = 0; i < 4; ++i) {
+                const int r = (lane >> 2) + 8 * (i >> 1), n = 2 * (lane & 3) + (i & 1);
+                long long sum = 0;
+                for (int k = 0; k < KSTEP; ++k) {
+                    const int q = (k & 15) >> 2, byte = 8 * (k & 3);
+                    const unsigned ar = a.r[(r & 7) * 4 + q][(r >> 3) + 2 * (k >> 4)];
+                    const unsigned av = ar >> byte & 0xff;
+                    const int bv = (signed char)(b.w[4 * n + q] >> (32 * (k >> 4) + byte) & 0xff);
+                    sum += (long long)av * bv;
+                }
+                c.c[lane][i] = (int)((unsigned)c.c[lane][i] + (unsigned)sum);
+            }
+    }
+};
+// A warp on the host: each lane's planes, and a step for all 32 lanes.
+template <int DW, int DXM, int TPW>
+struct HostWarp {
+    static constexpr int E = DW + DXM - 1;
+    const u64 *x0[32], *x1[32];  // each lane's coefficient of x_h (the last one past N)
+    WarpAcc acc[TPW][E];
+    void step(const int* col, int sk, int ch, const u64* wd, long long stride, int tiles, int dx,
+              int end, const long long* tile, long long n0, int l, const u64* c, const Args& a) {
+        WarpFrag f[DXM];
+        for (int lane = 0; lane < 32; ++lane) {
+            u64 w[2][2][4];
+            load_words(col, sk, ch, x0[lane], x1[lane], lane, w);
+            Frag lf[DXM];
+            split<DXM>(w, dx, lf);
+            for (int d = 0; d < DXM; ++d)
+                for (int i = 0; i < 4; ++i) f[d].r[lane][i] = lf[d].r[i];
+        }
+        for (int t = 0; t < tiles; ++t) {
+            WarpB b[DW];
+            for (int lane = 0; lane < 32; ++lane) {
+                u64 lb[DW];
+                load_b<DW>(wd + t * stride + lane, lb);
+                for (int i = 0; i < DW; ++i) b[i].w[lane] = lb[i];
+            }
+            products<DW, DXM>(acc[t], f, b, dx, HostMma());
+            for (int lane = 0; lane < 32; ++lane) {
+                int mine[E][4];
+                for (int e = 0; e < E; ++e)
+                    for (int i = 0; i < 4; ++i) mine[e][i] = acc[t][e].c[lane][i];
+                if (end == 2)
+                    store<E>(a, tile + t * TABLE, l, n0, lane, mine, limb_of(c));
+                else if (end)
+                    fold<E>(mine, limb_of(c));
+                for (int e = 0; e < E; ++e)
+                    for (int i = 0; i < 4; ++i) acc[t][e].c[lane][i] = mine[e][i];
             }
         }
     }
+};
+// The kernel's blocks in turn, each warp walking its run.
+template <int DW, int DXM, int TPW>
+static void layer(const Args& a) {
+    const long long strips = (a.N + 8 * a.ss - 1) / (8 * a.ss), runs = (a.S + a.run - 1) / a.run;
+    const int warps = (a.tb + TPW - 1) / TPW * a.ss;
+    static HostWarp<DW, DXM, TPW> warp;
+    for (int l = 0; l < a.L; ++l)
+        for (long long by = 0; by < strips; ++by)
+            for (long long bx = 0; bx < runs; ++bx)
+                for (int w = 0; w < warps; ++w) {
+                    warp = HostWarp<DW, DXM, TPW>{};
+                    for (int lane = 0; lane < 32; ++lane) {
+                        const long long n = (by * a.ss + w % a.ss) * 8 + (lane >> 2);
+                        const long long at = l * a.sl + (n < a.N ? n : a.N - 1) * a.sn;
+                        warp.x0[lane] = a.x0 + at;
+                        warp.x1[lane] = a.x1 + at;
+                    }
+                    walk<DW, TPW>(a, bx, by, l, w, warp);
+                }
+}
+template <int DXM>
+static void layer(const Args& a) {
+    if (DXM == 6 && a.tpw == 2) switch (a.dw) {
+            case 1: return layer<1, 6, 2>(a);
+            case 2: return layer<2, 6, 2>(a);
+            case 3: return layer<3, 6, 2>(a);
+            case 4: return layer<4, 6, 2>(a);
+            default: return layer<5, 6, 2>(a);
+        }
+    switch (a.dw) {
+        case 1: return layer<1, DXM, 1>(a);
+        case 2: return layer<2, DXM, 1>(a);
+        case 3: return layer<3, DXM, 1>(a);
+        case 4: return layer<4, DXM, 1>(a);
+        case 5: return layer<5, DXM, 1>(a);
+        case 6: return layer<6, DXM, 1>(a);
+        case 7: return layer<7, DXM, 1>(a);
+        default: return layer<8, DXM, 1>(a);
+    }
 }
 extern "C" int ct_matrix_launch(const void* x0, const void* x1, const long long* xstr,
-                                const void* w, const void* col, const void* tiles,
-                                const void* bias, const void* consts, void* out, long long T,
-                                long long P, long long J, long long N, int L, int tile,
+                                const void* wd, const void* col, const void* tiles,
+                                const void* slabs, const void* bias, const void* consts,
+                                void* out, long long S, long long WK, long long J, long long N,
+                                int L, int dw, int dx, int tb, int tpw, int ss, int run,
                                 int fold, void* stream) {
     Args a;
-    if (make_args(a, x0, x1, xstr, w, col, tiles, bias, consts, out, T, P, J, N, L, tile, fold))
+    if (make_args(a, x0, x1, xstr, wd, col, tiles, slabs, bias, consts, out, S, WK, J, N, L, dw,
+                  dx, tb, tpw, ss, run, fold))
         return -2;
-    switch (tile) {
-        case 1: run<1>(a); break;
-        case 2: run<2>(a); break;
-        case 4: run<4>(a); break;
-        default: run<MAX_TILE>(a);
-    }
+    dx <= 6 ? layer<6>(a) : layer<8>(a);
     return 0;
 }
 """,

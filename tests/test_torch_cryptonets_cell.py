@@ -6,10 +6,14 @@ left out).
 
 The plaintext-matrix product (``ops/ct_matrix.py``, ``csrc/ct_matrix.cu``):
 its plain version against Python integers on random layers, levels and
-negative weights, encoded by ``PlainMatrix`` at Lattigo's scale rules, with
-the 128-bit fold forced early; the kernel's own source built for the host
-behind the real wrapper, equal to the plain version for every tile size;
-the convolution's taps against ``torch.nn.functional.conv2d``.  The
+negative weights, encoded by ``PlainMatrix`` at Lattigo's scale rules (the
+weights read back from the kernel's digit tables), on words at q - 1, with
+the 128-bit fold forced early and crossed; the kernel's own source (its
+tensor-core products as a host loop over the same fragments) built for the
+host behind the real wrapper, equal to the plain version for every tile
+size and at the edges of its domain (8 digits, 61-bit words, the plane
+fold's interval, outputs with no taps, several slabs a group); the
+convolution's taps against ``torch.nn.functional.conv2d``.  The
 network through the port against ``fhe_bench/reference/cryptonets.py``
 within a limit, at the reference's level and scale; the counters of one
 call; a stack of plaintexts encrypted in one call."""
@@ -33,6 +37,8 @@ from lattigo_tpu_torch.ops import number_theory as nt
 from lattigo_tpu_torch.ops import u64 as u
 from lattigo_tpu_torch.tools import host_build
 from lattigo_tpu_torch.utils import profiling
+
+T = torch.Tensor
 
 torch.set_num_threads(1)
 
@@ -65,18 +71,30 @@ def big_layer(matrix: ckks.PlainMatrix, x: np.ndarray, moduli, scale: float,
     return out % np.array(moduli, dtype=object)[:, None]
 
 
+def primes_below_2_61(count: int) -> list[int]:
+    """The largest primes below 2^61: (q - 1)^2 near 2^122."""
+    out, x = [], (1 << 61) - 1
+    while len(out) < count:
+        out += [x] if nt.is_prime(x) else []
+        x -= 2
+    return out
+
+
 @pytest.mark.parametrize("bits,limbs,n,n_in,n_out,density,fold", [
     (60, 3, 16, 70, 11, 1.0, None),  # dense: tiles of 8 and 3 outputs
     (60, 2, 8, 40, 13, 0.3, 3),  # sparse, a fold every 3 products
     (35, 4, 32, 25, 9, 0.6, None),
     (46, 1, 8, 12, 3, 1.0, 1),  # a fold after every product
+    (61, 2, 8, 70, 5, 1.0, None),  # 70 taps cross the 128-bit fold (64 products below 2^61)
+    (35, 2, 8, 30, 7, 0.15, None),  # outputs with no taps
 ])
 def test_the_plain_version_is_exact(bits, limbs, n, n_in, n_out, density, fold):
     """Random weights of both signs at the scale 2^34 and biases at the
     scale 2^68 (beyond int64), encoded by ``PlainMatrix``, on words below
-    each modulus: the plain version equals Python integers."""
+    each modulus and on words at q - 1: the plain version equals Python
+    integers."""
     rng = np.random.default_rng(bits + limbs + n_in)
-    moduli = nt.generate_ntt_primes(bits, 4, limbs)
+    moduli = primes_below_2_61(limbs) if bits == 61 else nt.generate_ntt_primes(bits, 4, limbs)
     rows, cols = np.nonzero(rng.random((n_out, n_in)) < density)
     matrix = ckks.PlainMatrix(rows, cols, rng.uniform(-0.6, 0.6, len(rows)), n_out, n_in,
                               bias=rng.uniform(-2, 2, n_out))
@@ -84,18 +102,118 @@ def test_the_plain_version_is_exact(bits, limbs, n, n_in, n_out, density, fold):
     if fold is not None:
         tab = dataclasses.replace(tab, fold=fold)
     assert tab.products == len(rows)
-    x = np.stack([rng.integers(0, q, (2, n_in, n), dtype=np.uint64) for q in moduli], axis=2)
-    got = ct_matrix.ct_matrix(u.from_u64(x[0], CPU), u.from_u64(x[1], CPU), tab)
-    want = big_layer(matrix, x, moduli, 2.0**34, 2.0**68)
-    assert (u.to_u64(got).astype(object) == want).all()
+    assert bits != 61 or tab.fold < n_in
+    top = np.array(moduli, dtype=np.uint64)[:, None] - np.uint64(1)
+    for x in (np.stack([rng.integers(0, q, (2, n_in, n), dtype=np.uint64) for q in moduli],
+                       axis=2),
+              np.broadcast_to(top, (2, n_in, limbs, n)).copy()):
+        got = ct_matrix.ct_matrix(u.from_u64(x[0], CPU), u.from_u64(x[1], CPU), tab)
+        want = big_layer(matrix, x, moduli, 2.0**34, 2.0**68)
+        assert (u.to_u64(got).astype(object) == want).all()
 
 
-@pytest.mark.parametrize("outputs", [1, 2, 3, 8, 11])
-def test_the_kernels_source_equals_the_plain_version(monkeypatch, outputs):
+def source_equals_plain(monkeypatch, lib, tab, x0, x1) -> T:
+    """The layer through the host build of ``csrc/ct_matrix.cu`` behind the
+    real wrapper (one launch), bit-equal to the plain version."""
+    want = ct_matrix.ct_matrix(x0, x1, tab)
+    with monkeypatch.context() as m:
+        m.setattr(_build, "takes_kernel", lambda name, *t: name == "ct_matrix")
+        m.setitem(_build.LIBRARIES, "ct_matrix", lib)
+        before = _build.launch_counts()["ct_matrix"]
+        got = ct_matrix.ct_matrix(x0, x1, tab)
+        assert _build.launch_counts()["ct_matrix"] == before + 1
+    assert torch.equal(got, want)
+    return got
+
+
+def residue_layer(rows, cols, signed, moduli, n_in, n_out, bias=None):
+    """Tables of the taps with the signed integer weights ``signed`` (and
+    biases), as residues of each modulus."""
+    res = np.array([[int(v) % q for v in signed] for q in moduli], dtype=np.uint64)
+    b = None if bias is None else np.array([[int(v) % q for v in bias] for q in moduli],
+                                           dtype=np.uint64)
+    return ct_matrix.tables(rows, cols, res, b, moduli, n_in, n_out, CPU)
+
+
+def stack(rng, moduli, n_in, n, word=None):
+    """(x0, x1) [n_in, L, n]: random words below each modulus, or every
+    word ``word(q)``."""
+    if word is None:
+        x = np.stack([rng.integers(0, q, (2, n_in, n), dtype=np.uint64) for q in moduli], axis=2)
+    else:
+        x = np.broadcast_to(np.array([word(q) for q in moduli], dtype=np.uint64)[:, None],
+                            (2, n_in, len(moduli), n)).copy()
+    return u.from_u64(x[0], CPU), u.from_u64(x[1], CPU)
+
+
+def edge_case(name, rng):
+    """``(tables, x0, x1)`` of the named edge case of the kernel's domain."""
+    if name == "negative_8_digits":  # centered weights near -q/2: the widest digits
+        moduli = primes_below_2_61(2)
+        rows, cols = np.indices((12, 40)).reshape(2, -1)
+        half = (min(moduli) - 1) // 2
+        signed = [-int(v) for v in rng.integers(1 << 58, half, len(rows), dtype=np.uint64)]
+        tab = residue_layer(rows, cols, signed, moduli, 40, 12, bias=[-half] * 12)
+        assert tab.digits == 8 and tab.nbytes == 8
+        return tab, *stack(rng, moduli, 40, 16)
+    if name.startswith("q_minus_1_"):  # every word q - 1, weights +-(2^33 - 1) and -1
+        bits = int(name.rsplit("_", 1)[1])
+        moduli = primes_below_2_61(2) if bits == 61 else nt.generate_ntt_primes(bits - 1, 4, 2)
+        rows, cols = np.indices((9, 33)).reshape(2, -1)
+        signed = np.where(np.arange(len(rows)) % 3 == 0, -1,
+                          np.where(np.arange(len(rows)) % 2, 1, -1) * ((1 << 33) - 1))
+        tab = residue_layer(rows, cols, signed, moduli, 33, 9, bias=[-1] * 9)
+        assert tab.digits == 5 and tab.nbytes == -(-bits // 8)
+        return tab, *stack(rng, moduli, 33, 16, lambda q: q - 1)
+    if name.startswith("plane_fold_"):  # a fold every k-step, or the natural interval crossed
+        moduli = nt.generate_ntt_primes(45, 4, 1)  # 46 bits: 6 bytes
+        forced = name == "plane_fold_forced"
+        n_in = 100 if forced else ct_matrix.plane_fold_of(5, 6) * ct_matrix.KSTEP + 40
+        rows, cols = np.indices((3 if forced else 1, n_in)).reshape(2, -1)
+        signed = -np.full(len(rows), 0x8080808080, dtype=np.int64)  # every digit -128
+        tab = residue_layer(rows, cols, signed, moduli, n_in, rows.max() + 1)
+        assert tab.digits == 5 and tab.plane_fold == ct_matrix.plane_fold_of(5, 6) == 204
+        if forced:
+            tab = dataclasses.replace(tab, plane_fold=2)
+        # bytes 0..4 at 255: plane 4 gains 5 * 128 * 255 a tap, and passes the fold's bound
+        # 40 taps past the natural interval, unless folded
+        return tab, *stack(rng, moduli, n_in, 8, lambda q: (1 << 40) - 1)
+    if name == "no_taps":  # outputs 1 and 4 have no taps, output 4 no bias either
+        moduli = nt.generate_ntt_primes(34, 4, 3)
+        rows = np.array([0, 0, 2, 3, 3, 3])
+        cols = np.array([0, 5, 1, 2, 3, 4])
+        signed = rng.integers(-(1 << 33), 1 << 33, len(rows))
+        tab = residue_layer(rows, cols, signed, moduli, 6, 5, bias=[3, -7, 0, 11, 0])
+        return tab, *stack(rng, moduli, 6, 8)
+    outputs = int(name.split("_")[0])  # dense layers of 61 (one slab of 8 tiles) and 150
+    moduli = nt.generate_ntt_primes(34, 4, 2)  # outputs (19 tiles: slabs of 10 and 9)
+    rows, cols = np.indices((outputs, 45)).reshape(2, -1)
+    signed = rng.integers(-(1 << 33), 1 << 33, len(rows))
+    tab = residue_layer(rows, cols, signed, moduli, 45, outputs,
+                        bias=rng.integers(-(1 << 40), 1 << 40, outputs))
+    assert (tab.tb, tab.tpw, tab.slabs.shape[0]) == {61: (8, 2, 1), 150: (10, 2, 2)}[outputs]
+    return tab, *stack(rng, moduli, 45, 16)
+
+
+@pytest.mark.parametrize("case", [pytest.param(o, id=str(o)) for o in (1, 2, 3, 8, 11)] + [
+    "negative_8_digits", "q_minus_1_35", "q_minus_1_46", "q_minus_1_61", "plane_fold_forced",
+    "plane_fold_natural", "no_taps", "61_outputs", "150_outputs"])
+def test_the_kernels_source_equals_the_plain_version(monkeypatch, case):
     """``csrc/ct_matrix.cu``'s arithmetic built for the host, behind the
-    real wrapper: tiles of 1, 2, 4 and 8 outputs (a dense layer of
-    ``outputs``), a convolution's tiles, a fold every 5 products, strided
-    inputs; bit-equal to the plain version."""
+    real wrapper, bit-equal to the plain version: a dense layer of ``case``
+    outputs (tiles of 1, 2, 3, 8 and 8 + 3 outputs) and a convolution's
+    tiles of 5 maps, a plane fold every k-step and a 128-bit fold every 5
+    products, strided inputs; then the edges of the kernel's domain:
+    negative weights at 8 digits, every word q - 1 at 35, 46 and 61 bits,
+    a fold every 2 k-steps and the natural plane fold crossed with every
+    digit at -128, outputs with no taps, one slab of 8 tiles and two of 10
+    and 9, two tiles a warp."""
+    rng = np.random.default_rng(len(str(case)))
+    lib = host_build.load("ct_matrix")
+    if isinstance(case, str):
+        source_equals_plain(monkeypatch, lib, *edge_case(case, rng))
+        return
+    outputs = case
     rng = np.random.default_rng(outputs)
     moduli = nt.generate_ntt_primes(60, 4, 3)
     n, n_in = 16, 36
@@ -105,20 +223,15 @@ def test_the_kernels_source_equals_the_plain_version(monkeypatch, outputs):
     conv = ckks.PlainMatrix(rows, cols, values, n_conv, n_in)
     x = np.stack([rng.integers(0, q, (n_in, 2, n), dtype=np.uint64) for q in moduli], axis=2)
     x0, x1 = (u.from_u64(x, CPU)[:, h] for h in range(2))  # strided [K, L, N] views
-    lib = host_build.load("ct_matrix")
     for matrix in (dense, conv):
-        tab = dataclasses.replace(matrix.tables(moduli, 2.0**40, 2.0**50, CPU), fold=5)
-        want = ct_matrix.ct_matrix(x0, x1, tab)
-        with monkeypatch.context() as m:
-            m.setattr(_build, "takes_kernel", lambda name, *t: name == "ct_matrix")
-            m.setitem(_build.LIBRARIES, "ct_matrix", lib)
-            before = _build.launch_counts()["ct_matrix"]
-            got = ct_matrix.ct_matrix(x0, x1, tab)
-            assert _build.launch_counts()["ct_matrix"] == before + 1
-        assert torch.equal(got, want)
-    tile = min(8, 1 << (outputs - 1).bit_length())
-    assert dense.tables(moduli, 2.0**40, 2.0**50, CPU).tile == tile
-    assert conv.tables(moduli, 2.0**40, 2.0**50, CPU).tile == 8  # 5 maps a position
+        tab = dataclasses.replace(matrix.tables(moduli, 2.0**40, 2.0**50, CPU), fold=5,
+                                  plane_fold=1)
+        source_equals_plain(monkeypatch, lib, tab, x0, x1)
+    tiles = dense.tables(moduli, 2.0**40, 2.0**50, CPU).tiles.cpu().numpy()
+    assert sorted(tiles[:, 2]) == sorted([8] * (outputs // 8) + [outputs % 8] * (outputs % 8 > 0))
+    tab = conv.tables(moduli, 2.0**40, 2.0**50, CPU)
+    assert set(tab.tiles[:, 2].tolist()) == {5} and (tab.tb, tab.tpw, tab.ss) == (1, 1, 4)
+    assert (tab.digits, tab.nbytes) == (6, 8)  # weights below 2^40, 60-bit words
 
 
 def test_the_convolutions_taps_are_conv2d():
